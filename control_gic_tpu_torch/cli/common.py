@@ -1,0 +1,50 @@
+"""Shared CLI plumbing: the codec from a config and a checkpoint
+(port of control_gic_tpu/cli/common.py)."""
+from __future__ import annotations
+
+import os
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..codec import CGICCodec
+from ..models import CGIC, CGICConfig
+from ..utils.device import resolve_device
+
+
+def build_codec(ckpt: Optional[str] = None,
+                config: Optional[CGICConfig] = None, seed: int = 0,
+                device: Union[str, torch.device] = "cuda") -> CGICCodec:
+    """A CGICCodec on `device` (CUDA unless asked otherwise; raises when CUDA
+    is missing) from a reference `.ckpt`, or with random weights drawn from
+    `seed` when no checkpoint is given.
+
+    config=None is the flagship config with activations in bfloat16 on CUDA
+    and float32 on the CPU."""
+    dev = resolve_device(device)
+    if config is None:
+        config = CGICConfig(
+            dtype="float32" if dev.type == "cpu" else "bfloat16")
+    model = CGIC(config, generator=torch.Generator().manual_seed(seed))
+    counts = np.ones(config.n_embed, np.int64)
+    if ckpt:
+        if not (os.path.isfile(ckpt)
+                and ckpt.endswith((".ckpt", ".pth", ".pt"))):
+            raise FileNotFoundError(f"not a reference checkpoint: {ckpt}")
+        from ..utils.from_jax import load_reference_checkpoint
+        state, counts = load_reference_checkpoint(ckpt)
+        model.load_state_dict(state, strict=True)
+        # counters can be all zero in a fresh checkpoint; keep Huffman valid
+        if counts.sum() == 0:
+            counts = np.ones_like(counts)
+    else:
+        print("WARNING: no checkpoint given — using random weights "
+              "(pipeline demo only; reconstructions will be noise).")
+    return CGICCodec(model, counts, device=dev)
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    from PIL import Image
+    arr = np.clip(np.asarray(img, np.float32), 0.0, 1.0)
+    Image.fromarray((arr * 255).astype(np.uint8)).save(path)
