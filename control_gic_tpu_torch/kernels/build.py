@@ -26,6 +26,25 @@ BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v")
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# library -> {exported function: (restype, argtypes)}; pointers and the
+# stream are c_void_p, so that ctypes never cuts them to 32 bits
+SIGNATURES = {
+    "flash_attn_fwd": {
+        "cgic_flash_attn_fwd": (_I, [_P] * 4 + [_I] * 5
+                                + [ctypes.c_float, _P]),
+        "cgic_flash_attn_smem_bytes": (_L, [_I, _I]),
+    },
+    "norm_conv_chain": {
+        "cgic_norm_conv_chain": (_I, [_P] * 15 + [_I] * 9 + [_P]),
+        "cgic_norm_conv_chain_block_n": (_I, [_I]),
+        "cgic_norm_conv_chain_tiles": (_I, [_I, _I, _I]),
+    },
+    "gn_moments": {
+        "cgic_gn_moments": (_I, [_P, _P, _I, _I, _L, _I, _P]),
+    },
+}
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, ptxas report) of the builds this process ran
@@ -68,9 +87,25 @@ def build(name: str, nvcc: Optional[str] = None) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernels/<name>.cu, built on first use."""
+    """The loaded library of kernels/<name>.cu, built on first use, with the
+    types of its functions declared (SIGNATURES)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name))
+            sigs = {**SIGNATURES[name],
+                    "cgic_cuda_error_string": (ctypes.c_char_p, [_I])}
+            for fn, (restype, argtypes) in sigs.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[name] = lib
         return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise unless a launcher's return code is 0 (a cudaError_t code > 0,
+    -1 for arguments the kernel refused)."""
+    if rc != 0:
+        why = (lib.cgic_cuda_error_string(rc).decode() if rc > 0
+               else "arguments refused")
+        raise RuntimeError(f"{name} launch failed ({rc}): {why}")

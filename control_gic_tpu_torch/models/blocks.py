@@ -1,5 +1,6 @@
 """VQGAN building blocks as nn.Modules, NCHW (port of
-control_gic_tpu/models/blocks.py, the unfused branch).
+control_gic_tpu/models/blocks.py: the unfused branch, and the ResnetBlock's
+chained branch through ops/norm_conv.py).
 
 Parameters are kept in f32 and cast to the block's compute dtype at use, as
 flax does. Module and parameter names follow the reference checkpoint's
@@ -25,6 +26,8 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.fused_norm import group_norm_reference, spatial_norm_reference
+from ..ops.norm_conv import (chain_admissible, group_norm_conv_mom,
+                             spatial_norm_conv_mom, stats_from_moments)
 from ..ops.resample import nearest_resize, upsample2_conv3x3
 
 
@@ -110,13 +113,54 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                              if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor,
-                zq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, zq: Optional[torch.Tensor] = None,
+                mom_in: Optional[torch.Tensor] = None,
+                emit_mom: bool = False):
+        """mom_in / emit_mom thread the stats-in-epilogue chain through a
+        trunk (ops/norm_conv.py): mom_in is the [B, 2, C] moments of x that
+        the previous chained block emitted (norm1's stats pass is then
+        skipped); emit_mom=True returns (out, moments of out). The caller
+        decides chain membership with chain_admissible."""
+        out_ch = self.conv1.weight.shape[0]
+        if (emit_mom or mom_in is not None) and chain_admissible(x.shape,
+                                                                 out_ch):
+            return self._chained(x, zq, mom_in, emit_mom)
+        assert mom_in is None and not emit_mom, \
+            "mom_in/emit_mom passed to a block that cannot chain " \
+            "(the caller checks chain_admissible first)"
         h = self.conv1(self.norm1(x, zq, act="swish"))
         h = self.conv2(self.norm2(h, zq, act="swish"))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
+
+    def _chained(self, x, zq, mom_in, emit_mom):
+        """Both norm+conv pairs as chain calls (JAX ResnetBlock's chained
+        branch): conv1 always emits its moments, which give conv2's stats;
+        conv2 adds the residual."""
+        dt = self.conv1.dtype
+        hw = x.shape[2] * x.shape[3]
+        xd = x.to(dt)
+        if isinstance(self.norm1, SpatialNorm):
+            zq_r = nearest_resize(zq, x.shape[2], x.shape[3]).to(dt)
+
+            def conv_mom(h, norm, conv, **kw):
+                return spatial_norm_conv_mom(
+                    h, zq_r, norm.norm_layer.weight, norm.norm_layer.bias,
+                    norm.conv_y.weight[:, :, 0, 0], norm.conv_y.bias,
+                    norm.conv_b.weight[:, :, 0, 0], norm.conv_b.bias,
+                    conv.weight, conv.bias, **kw)
+        else:
+            def conv_mom(h, norm, conv, **kw):
+                return group_norm_conv_mom(h, norm.weight, norm.bias,
+                                           conv.weight, conv.bias, **kw)
+
+        stats1 = stats_from_moments(mom_in, hw) if mom_in is not None else None
+        h, mom1 = conv_mom(xd, self.norm1, self.conv1, stats=stats1,
+                           emit_mom=True)
+        res = self.nin_shortcut(x) if self.nin_shortcut is not None else xd
+        return conv_mom(h, self.norm2, self.conv2, res=res,
+                        stats=stats_from_moments(mom1, hw), emit_mom=emit_mom)
 
 
 class AttnBlock(nn.Module):

@@ -1,5 +1,5 @@
 """Mask-aware VQGAN decoder with SpatialNorm conditioning, NCHW (port of
-control_gic_tpu/models/decoder.py, without the chained norm+conv path).
+control_gic_tpu/models/decoder.py).
 
   - three 3x3 conv stems (z -> block_in) and three zq-conditioned mid stacks
     at the full latent resolution; the coarse path is then avg-pooled x4
@@ -10,6 +10,10 @@ control_gic_tpu/models/decoder.py, without the chained norm+conv path).
       at H/8: h = h * up2(mask_c) + medium * mask_m
       at H/4: h = h * up4(mask_c) + h * up2(mask_m) + fine * mask_f
   - SpatialNorm -> swish -> 3x3 conv to out_ch.
+Trunk blocks at levels without attention chain (SpatialNorm form, see
+encoder.chain_step); mask injection, attention and Upsample end a chain. At
+level 0 the last block's moments feed norm_out + conv_out, which then run as
+one chain call with Cout = out_ch.
 """
 from __future__ import annotations
 
@@ -18,9 +22,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.resample import avg_pool, upsample_nearest
+from ..ops.norm_conv import (admissible, spatial_norm_conv_mom,
+                             stats_from_moments)
+from ..ops.resample import avg_pool, nearest_resize, upsample_nearest
 from .blocks import AttnBlock, Conv2d, ResnetBlock, SpatialNorm, Upsample
-from .encoder import Level, Mid
+from .encoder import Level, Mid, chain_consumes, chain_step
 
 
 class Decoder(nn.Module):
@@ -79,19 +85,40 @@ class Decoder(nn.Module):
         h_coarse = avg_pool(h_coarse, 4)
         h_medium = avg_pool(h_medium, 2)
 
-        h = h_coarse
+        out_ch = self.conv_out.weight.shape[0]
+        # the last block of level 0 hands its moments to norm_out + conv_out
+        to_out = lambda shape: admissible(shape, out_ch)
+        h, mom = h_coarse, None
         for i_level in reversed(range(self.num_res)):
             if i_level == self.num_res - 2:
                 h = h * upsample_nearest(gate(m_c), 2) + h_medium * gate(m_m)
+                mom = None
             elif i_level == self.num_res - 3:
                 h = (h * upsample_nearest(gate(m_c), 4)
                      + h * upsample_nearest(gate(m_m), 2)
                      + h_fine * gate(m_f))
+                mom = None
             level = self.up[i_level]
+            last = len(level.block) - 1
             for i_block, block in enumerate(level.block):
-                h = block(h, zq)
+                consumes = (chain_consumes if i_block < last
+                            else to_out if i_level == 0 else None)
+                h, mom = chain_step(block, h, zq, mom, not len(level.attn),
+                                    consumes)
                 if len(level.attn):
                     h = level.attn[i_block](h, zq)
             if i_level != 0:
                 h = level.upsample(h)
+                mom = None
+        if mom is not None:
+            # norm_out + conv_out as one chain call, stats from the moments
+            zq_r = nearest_resize(zq, h.shape[2], h.shape[3]).to(self.dtype)
+            n = self.norm_out
+            return spatial_norm_conv_mom(
+                h.to(self.dtype), zq_r, n.norm_layer.weight,
+                n.norm_layer.bias, n.conv_y.weight[:, :, 0, 0], n.conv_y.bias,
+                n.conv_b.weight[:, :, 0, 0], n.conv_b.bias,
+                self.conv_out.weight, self.conv_out.bias,
+                stats=stats_from_moments(mom, h.shape[2] * h.shape[3]),
+                emit_mom=False)
         return self.conv_out(self.norm_out(h, zq, act="swish"))

@@ -7,16 +7,44 @@ One downsampling trunk taps features at three depths:
 Each tap has its own mid stack (ResBlock + Attn + ResBlock), GroupNorm,
 swish and 3x3 conv head down to z_channels. Attention placement follows the
 config `resolution`, not the input's size.
+
+Trunk blocks at levels without attention chain (GroupNorm form, see
+`chain_step`): each block's epilogue moments feed the next block's norm.
+Attention and Downsample end a chain. The heads stay unfused.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.norm_conv import chain_admissible
 from .blocks import (AttnBlock, Conv2d, Downsample, GroupNorm32, ResnetBlock,
                      swish)
+
+
+def chain_consumes(out_shape) -> bool:
+    """Whether a following trunk block chains on an output of this shape."""
+    return chain_admissible(out_shape, out_shape[1])
+
+
+def chain_step(block: ResnetBlock, h: torch.Tensor,
+               zq: Optional[torch.Tensor], mom: Optional[torch.Tensor],
+               may_chain: bool,
+               consumes: Optional[Callable[[tuple], bool]]):
+    """One trunk block under the JAX package's chain wiring: the block
+    chains when `may_chain` (no attention at its level) and its shape is
+    chain-admissible; it emits the moments of its output when
+    `consumes(out_shape)` says that what follows takes them (None: nothing
+    does). Returns (h, moments of h or None)."""
+    out_ch = block.conv1.weight.shape[0]
+    if not (may_chain and chain_admissible(h.shape, out_ch)):
+        return block(h, zq), None
+    emit = consumes is not None and consumes(
+        (h.shape[0], out_ch, h.shape[2], h.shape[3]))
+    out = block(h, zq, mom_in=mom, emit_mom=emit)
+    return out if emit else (out, None)
 
 
 class Level(nn.Module):
@@ -83,14 +111,18 @@ class Encoder(nn.Module):
         z_coarse [.., H/16, ..])."""
         h = self.conv_in(x)
         taps = {}
+        mom = None
         for i_level, level in enumerate(self.down):
+            last = len(level.block) - 1
             for i_block, block in enumerate(level.block):
-                h = block(h)
+                h, mom = chain_step(block, h, None, mom, not len(level.attn),
+                                    chain_consumes if i_block < last else None)
                 if len(level.attn):
                     h = level.attn[i_block](h)
             taps[i_level] = h
             if i_level != self.num_res - 1:
                 h = level.downsample(h)
+                mom = None
         heads = ((self.mid_fine, self.norm_out_fine, self.conv_out_fine,
                   taps[self.num_res - 3]),
                  (self.mid, self.norm_out, self.conv_out,

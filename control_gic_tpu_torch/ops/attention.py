@@ -13,7 +13,8 @@ Three functions compute it:
     tensors only.
 
 `attention` dispatches between the kernel and the plain path the way the JAX
-package does: the kernel from FLASH_MIN_TOKENS keys on, the plain path below.
+package does: the kernel from FLASH_MIN_TOKENS keys on, where JAX's blocks
+divide both lengths, the plain path otherwise.
 """
 from __future__ import annotations
 
@@ -22,9 +23,13 @@ from typing import Optional
 
 import torch
 
-# The JAX package's engagement threshold, tuned on a TPU and kept as it is;
-# it has not been re-derived on the H100.
+from . import use_kernel
+
+# The JAX package's engagement rule, tuned on a TPU and kept as it is so that
+# the port engages where JAX does; it has not been re-derived on the H100.
 FLASH_MIN_TOKENS = 4096
+_BLOCK_Q = 1024
+_BLOCK_K = 512
 
 # Launches of the CUDA kernel in this process (flash_attention adds one per
 # launch). A caller resets it to 0 and reads it back to see that a run went
@@ -118,22 +123,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
             ctypes.c_int(b), ctypes.c_int(tq), ctypes.c_int(tk),
             ctypes.c_int(c), ctypes.c_int(_DTYPE_CODE[q.dtype]),
             ctypes.c_float(float(c) ** -0.5), ctypes.c_void_p(stream))
-    if rc != 0:
-        lib.cgic_cuda_error_string.restype = ctypes.c_char_p
-        why = (lib.cgic_cuda_error_string(rc).decode() if rc > 0
-               else "arguments refused")
-        raise RuntimeError(f"flash_attn_fwd launch failed ({rc}): {why}")
+    build.check(lib, rc, "flash_attn_fwd")
     KERNEL_LAUNCHES += 1
     return out
 
 
+def _pick_block(t: int, preferred: int) -> int:
+    """Largest power-of-two block <= preferred that divides t (>= 256); 0
+    when there is none (JAX `_pick_block`)."""
+    b = preferred
+    while b >= 256:
+        if t % b == 0:
+            return b
+        b //= 2
+    return 0
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               use_flash: Optional[bool] = None) -> torch.Tensor:
-    """Flash kernel for CUDA tensors with at least FLASH_MIN_TOKENS keys, the
-    plain path otherwise. use_flash=True forces the kernel (and raises on CPU
-    tensors); use_flash=False forces the plain path."""
+    """Flash kernel for CUDA tensors with at least FLASH_MIN_TOKENS keys and
+    lengths that JAX's blocks divide (`_pick_block(Tq, 1024)` and
+    `_pick_block(Tk, 512)` both non-zero, its engagement rule); the plain
+    path otherwise and inside ops.plain_versions(). use_flash=True forces
+    the kernel (and raises on CPU tensors); use_flash=False forces the plain
+    path."""
     if use_flash is None:
-        use_flash = q.is_cuda and k.shape[1] >= FLASH_MIN_TOKENS
+        use_flash = (use_kernel(q) and k.shape[1] >= FLASH_MIN_TOKENS
+                     and _pick_block(q.shape[1], _BLOCK_Q) > 0
+                     and _pick_block(k.shape[1], _BLOCK_K) > 0)
     if use_flash:
         return flash_attention(q, k, v)
     return attention_reference(q, k, v)

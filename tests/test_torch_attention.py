@@ -77,6 +77,26 @@ def test_dispatch_on_cpu_takes_the_plain_path():
                                   tat.attention_reference(q, k, v).numpy())
 
 
+@pytest.mark.parametrize("t", [4096, 4112, 6144, 24576, 1024, 256, 100])
+def test_pick_block_matches_jax(t):
+    for preferred in (tat._BLOCK_Q, tat._BLOCK_K):
+        assert tat._pick_block(t, preferred) == jat._pick_block(t, preferred)
+    assert (tat._BLOCK_Q, tat._BLOCK_K) == (jat._BLOCK_Q, jat._BLOCK_K)
+    assert tat.FLASH_MIN_TOKENS == jat._FLASH_MIN_TOKENS
+
+
+def test_plain_versions_switch_restores_itself():
+    from control_gic_tpu_torch import ops
+    q = torch.zeros(1, 8, 16)
+    assert not ops.use_kernel(q)
+    assert not ops._PLAIN.get()
+    with ops.plain_versions():
+        with ops.plain_versions():
+            assert ops._PLAIN.get()
+        assert ops._PLAIN.get()
+    assert not ops._PLAIN.get()
+
+
 def test_flash_on_cpu_raises():
     q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 64, 64, 16))
     with pytest.raises(ValueError, match="CUDA"):

@@ -14,6 +14,8 @@ CHECK = """
 import sys
 import control_gic_tpu_torch, control_gic_tpu_torch.codec
 import control_gic_tpu_torch.cli.infer, control_gic_tpu_torch.utils.from_jax
+import control_gic_tpu_torch.ops.norm_conv, control_gic_tpu_torch.ops.fused_norm
+import control_gic_tpu_torch.kernels.build
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
