@@ -19,9 +19,19 @@ Phases, each printing a line of its own:
   6. f32 parity at 256x256: the card (kernels) against the CPU (plain
      versions), same weights;
   7. Kodak f32: one 512x768 image through the f32 model on the card with the
-     kernels against the same model under ops.plain_versions().
-Then the kernel JSON line, and last the device JSON line. Any failure raises
-and the script exits non-zero without the last line.
+     kernels against the same model under ops.plain_versions();
+  8. training: the full-width f32 generator + discriminator step at 256x256,
+     batch 2, through the train CLI's loop on synthetic batches: the first
+     step's generator gradients with the kernels against the same step under
+     ops.plain_versions(), 3 steps with exact launch counts per step, one
+     eval step, a checkpoint save and restore, a profile of one step; then 2
+     bf16 steps with the same launch checks, and the train CLI on PNGs when
+     PIL is installed.
+Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
+and dq backward) and the gradients of the chain and the moment pass against
+their plain versions. Then the kernel JSON line, and last the device JSON
+line. Any failure raises and the script exits non-zero without the last
+line.
 """
 from __future__ import annotations
 
@@ -37,6 +47,21 @@ KERNELS = {
         "route": "cuda",
         "source": "control_gic_tpu_torch/kernels/flash_attn_fwd.cu",
         "replaces": "control_gic_tpu/ops/attention.py:49",
+    },
+    "flash_attn_fwd_lse": {
+        "route": "cuda",
+        "source": "control_gic_tpu_torch/kernels/flash_attn_fwd.cu",
+        "replaces": "control_gic_tpu/ops/attention.py:125",
+    },
+    "flash_attn_bwd_dkdv": {
+        "route": "cuda",
+        "source": "control_gic_tpu_torch/kernels/flash_attn_bwd.cu",
+        "replaces": "control_gic_tpu/ops/attention.py:200",
+    },
+    "flash_attn_bwd_dq": {
+        "route": "cuda",
+        "source": "control_gic_tpu_torch/kernels/flash_attn_bwd.cu",
+        "replaces": "control_gic_tpu/ops/attention.py:244",
     },
     "norm_conv_chain": {
         "route": "cuda",
@@ -66,6 +91,20 @@ CHAIN_SHAPES = [("gn", 512, 768, 128, 128, True, True, "bfloat16"),
                 ("sn", 512, 768, 128, 128, True, True, "bfloat16"),
                 ("sn", 512, 768, 128, 3, False, False, "bfloat16"),
                 ("gn", 256, 384, 256, 256, True, True, "float32")]
+# the training kernels' shapes (B, Tq, Tk, C, dtype): the 256x256 batch-2
+# training step's four attentions (C=512 in the decoder's mids, 256 in the
+# encoder's fine head), in the recipe's f32 and in bf16; then a ragged
+# length and a Tq != Tk
+TRAIN_ATTN_SHAPES = [(2, 4096, 4096, 512, "float32"),
+                     (2, 4096, 4096, 256, "float32"),
+                     (2, 4096, 4096, 512, "bfloat16"),
+                     (2, 4096, 4096, 256, "bfloat16"),
+                     (1, 4100, 4100, 512, "bfloat16"),
+                     (2, 1024, 4096, 512, "float32")]
+# chain gradient checks: one GroupNorm-form and one SpatialNorm-form Kodak
+# shape, (form, H, W, Cin, Cout, residual), f32
+CHAIN_GRAD_SHAPES = [("gn", 256, 384, 256, 256, True),
+                     ("sn", 512, 768, 128, 128, True)]
 # the moment pass's inputs on the 512x768 path: (B, C, H, W), bf16
 MOMENT_SHAPES = [(1, 128, 512, 768), (1, 128, 256, 384), (1, 256, 256, 384),
                  (1, 256, 512, 768)]
@@ -118,21 +157,29 @@ def rel_err(got, want) -> float:
             / max(1.0, want.float().abs().max().item())).item()
 
 
-def reset_launches() -> None:
+def _counters():
     from control_gic_tpu_torch.ops import attention as A
     from control_gic_tpu_torch.ops import fused_norm as FN
     from control_gic_tpu_torch.ops import norm_conv as NC
-    A.KERNEL_LAUNCHES = 0
-    NC.KERNEL_LAUNCHES.update(chain_gn=0, chain_sn=0)
-    FN.KERNEL_LAUNCHES.update(gn_moments=0)
+    return A.KERNEL_LAUNCHES, NC.KERNEL_LAUNCHES, FN.KERNEL_LAUNCHES
+
+
+# the port's counter names -> the names of the kernels line
+_FLASH_NAMES = {"flash_fwd": "flash_attn_fwd",
+                "flash_fwd_lse": "flash_attn_fwd_lse",
+                "flash_bwd_dkdv": "flash_attn_bwd_dkdv",
+                "flash_bwd_dq": "flash_attn_bwd_dq"}
+
+
+def reset_launches() -> None:
+    for counts in _counters():
+        counts.update({k: 0 for k in counts})
 
 
 def read_launches() -> dict:
-    from control_gic_tpu_torch.ops import attention as A
-    from control_gic_tpu_torch.ops import fused_norm as FN
-    from control_gic_tpu_torch.ops import norm_conv as NC
-    return {"flash_attn_fwd": A.KERNEL_LAUNCHES, **NC.KERNEL_LAUNCHES,
-            **FN.KERNEL_LAUNCHES}
+    flash, chain, moments = _counters()
+    return {**{_FLASH_NAMES[k]: v for k, v in flash.items()}, **chain,
+            **moments}
 
 
 def phase_device() -> dict:
@@ -158,9 +205,11 @@ def phase_build() -> None:
 
     from control_gic_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        paths = list(pool.map(build.build, KERNELS))
-    for name in KERNELS:
+    sources = sorted({os.path.basename(k["source"])[:-3]
+                      for k in KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(build.build, sources))
+    for name in sources:
         build.load(name)
     for name, (secs, report) in build.BUILD_LOG.items():
         print(f"[ptxas {name}] {secs:.2f} s\n{report.strip()}", flush=True)
@@ -210,9 +259,180 @@ def phase_kernels(dev: dict) -> list:
                                  f"max abs err {err} > {ATTN_TOL[dt]}")
         rows.append(row)
         del q, k, v, out, ref
+    rows += train_attn_rows(dev, peaks, gen)
     rows += chain_rows(dev, peaks, gen)
     rows += moment_rows(dev, peaks, gen)
+    chain_grad_checks(gen)
     return rows
+
+
+def sdpa_backend(q4, k4, v4) -> str:
+    """The SDPA backend torch picks for these inputs."""
+    import torch
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "not reported by this torch"
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(choose(q4, k4, v4)).name
+
+
+def train_attn_rows(dev: dict, peaks, gen) -> list:
+    """The training kernels at TRAIN_ATTN_SHAPES: the lse forward against
+    torch.logsumexp of the f32 logits, the backward kernels against autograd
+    of attention_reference, each within OUT_TOL · max(1, max|plain|). The
+    library yardstick is SDPA (forward, and forward + backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from control_gic_tpu_torch.ops import attention as A
+
+    rows = []
+    for b, tq, tk, c, dt in TRAIN_ATTN_SHAPES:
+        dtype = getattr(torch, dt)
+        r = lambda *s, scale=1.0: (scale * torch.randn(
+            *s, device="cuda", generator=gen)).to(dtype)
+        q, k, v = r(b, tq, c, scale=2.0), r(b, tk, c), r(b, tk, c)
+        do = r(b, tq, c)
+        o, lse = A.flash_attention(q, k, v, return_lse=True)
+        dk, dv, delta = A.flash_attention_backward_dkdv(q, k, v, o, lse, do)
+        dq = A.flash_attention_backward_dq(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * c ** -0.5
+        want_lse = torch.logsumexp(logits, dim=-1)
+        del logits
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = A.attention_reference(*leaves)
+        want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+        pairs = {"lse": (lse, want_lse), "out": (o, ref), "dq": (dq, want[0]),
+                 "dk": (dk, want[1]), "dv": (dv, want[2])}
+        errs = {key: rel_err(*pair) for key, pair in pairs.items()}
+        abs_errs = {key: (got.float() - w.float()).abs().max().item()
+                    for key, (got, w) in pairs.items()}
+        del pairs
+        ms = {"flash_attn_fwd_lse": cuda_time_ms(
+                  lambda: A.flash_attention(q, k, v, return_lse=True)),
+              "flash_attn_bwd_dkdv": cuda_time_ms(
+                  lambda: A.flash_attention_backward_dkdv(q, k, v, o, lse,
+                                                          do)),
+              "flash_attn_bwd_dq": cuda_time_ms(
+                  lambda: A.flash_attention_backward_dq(q, k, v, do, lse,
+                                                        delta))}
+        plain_ms = {
+            "flash_attn_fwd_lse": cuda_time_ms(lambda: (
+                A.attention_reference(q, k, v), torch.logsumexp(
+                    torch.matmul(q.float(), k.float().transpose(1, 2))
+                    * c ** -0.5, dim=-1))),
+            "flash_attn_bwd_dkdv": cuda_time_ms(lambda: torch.autograd.grad(
+                ref, leaves[1:], do, retain_graph=True)),
+            "flash_attn_bwd_dq": cuda_time_ms(lambda: torch.autograd.grad(
+                ref, leaves[:1], do, retain_graph=True))}
+        del ref, want
+        q4, k4, v4, do4 = (t[:, None] for t in (q, k, v, do))
+        backend = sdpa_backend(q4, k4, v4)
+        lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4))
+        l4 = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+        lib_fb = cuda_time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*l4), l4, do4))
+        item = q.element_size()
+        io = item * (b * tq * c + 2 * b * tk * c)          # q, k, v
+        mm = 2.0 * b * tq * tk * c                          # one product
+        bounds = {
+            "flash_attn_fwd_lse": bound_ms(2 * mm, io + item * b * tq * c
+                                           + 4 * b * tq, dt, peaks),
+            "flash_attn_bwd_dkdv": bound_ms(
+                4 * mm + 2.0 * b * tq * c,
+                io + item * (2 * b * tq * c + 2 * b * tk * c) + 8 * b * tq,
+                dt, peaks),
+            "flash_attn_bwd_dq": bound_ms(
+                3 * mm, io + item * 2 * b * tq * c + 8 * b * tq, dt, peaks)}
+        tol = OUT_TOL[dt]
+        for name, err_keys in (("flash_attn_fwd_lse", ("lse", "out")),
+                               ("flash_attn_bwd_dkdv", ("dk", "dv")),
+                               ("flash_attn_bwd_dq", ("dq",))):
+            err = max(errs[key] for key in err_keys)
+            row = {"kernel": name, "shape": [b, tq, tk, c], "dtype": dt,
+                   "max_abs_err": max(abs_errs[key] for key in err_keys),
+                   "rel_err": err, "rel_errs": {key: errs[key] for key
+                                                in err_keys},
+                   "tol": tol, "ms": ms[name], "plain_ms": plain_ms[name],
+                   "library_ms": lib_fwd if name == "flash_attn_fwd_lse"
+                   else lib_fb,
+                   "library": f"SDPA {'forward' if name.endswith('lse') else 'forward + backward'}, backend {backend}",
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                   "card": dev["nvidia_smi"]}
+            log(f"kernel {name}", **row)
+            if not err <= tol:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {row}")
+            rows.append(row)
+        del q, k, v, do, o, lse, dq, dk, dv, delta, leaves, l4
+    return rows
+
+
+def chain_grad_checks(gen) -> None:
+    """Gradients through the chain kernel (_ChainFn, stats from the moment
+    kernel under _GnMomentsFn) against autograd of the plain versions, f32,
+    at one Kodak shape of each norm form; and the moment pass's gradient."""
+    import torch
+
+    from control_gic_tpu_torch.ops import fused_norm as FN
+    from control_gic_tpu_torch.ops import norm_conv as NC
+    from control_gic_tpu_torch.ops import plain_versions
+
+    for form, h, w, cin, cout, with_res in CHAIN_GRAD_SHAPES:
+        r = lambda *s, scale=1.0: scale * torch.randn(*s, device="cuda",
+                                                      generator=gen)
+        inputs = dict(x=r(1, cin, h, w), gs=1 + r(cin, scale=0.1),
+                      gb=r(cin, scale=0.1),
+                      cw=r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
+                      cb=r(cout, scale=0.1))
+        if with_res:
+            inputs["res"] = r(1, cout, h, w)
+        if form == "sn":
+            inputs.update(zq_r=r(1, 4, h, w), wy=r(cin, 4, scale=0.3),
+                          by=r(cin, scale=0.1), wb=r(cin, 4, scale=0.3),
+                          bb=r(cin, scale=0.1))
+        g_out, g_mom = r(1, cout, h, w), r(1, 2, cout, scale=1e-4)
+
+        def grads():
+            leaves = {n: t.detach().requires_grad_()
+                      for n, t in inputs.items()}
+            a = dict(leaves)
+            if form == "sn":
+                out, mom = NC.spatial_norm_conv_mom(
+                    a["x"], a["zq_r"], a["gs"], a["gb"], a["wy"], a["by"],
+                    a["wb"], a["bb"], a["cw"], a["cb"], res=a.get("res"))
+            else:
+                out, mom = NC.group_norm_conv_mom(
+                    a["x"], a["gs"], a["gb"], a["cw"], a["cb"],
+                    res=a.get("res"))
+            return dict(zip(leaves, torch.autograd.grad(
+                (out, mom), list(leaves.values()), (g_out, g_mom))))
+
+        before = dict(NC.KERNEL_LAUNCHES), FN.KERNEL_LAUNCHES["gn_moments"]
+        got = grads()
+        key = "chain_sn" if form == "sn" else "chain_gn"
+        if (NC.KERNEL_LAUNCHES[key] != before[0][key] + 1
+                or FN.KERNEL_LAUNCHES["gn_moments"] != before[1] + 1):
+            raise AssertionError("the chain gradient check missed a kernel")
+        with plain_versions():
+            want = grads()
+        errs = {n: rel_err(got[n], want[n]) for n in want}
+        log("chain gradient", form=form, shape=[1, cin, h, w], cout=cout,
+            residual=with_res, rel_errs=errs, tol=OUT_TOL["float32"])
+        if not max(errs.values()) <= OUT_TOL["float32"]:
+            raise AssertionError(f"chain gradient disagrees: {errs}")
+    x = torch.randn(1, 256, 512, 768, device="cuda", generator=gen,
+                    requires_grad=True)
+    g = torch.randn(1, 2, 256, device="cuda", generator=gen)
+    got, = torch.autograd.grad(FN.gn_moments(x), x, g)
+    want, = torch.autograd.grad(FN.gn_moments_reference(x), x, g)
+    err = rel_err(got, want)
+    log("moment gradient", shape=[1, 256, 512, 768], rel_err=err,
+        tol=MOM_TOL["float32"])
+    if not err <= MOM_TOL["float32"]:
+        raise AssertionError(f"moment gradient disagrees: {err}")
 
 
 def chain_rows(dev: dict, peaks, gen) -> list:
@@ -329,12 +549,19 @@ KODAK = (512, 768)
 # add the encoder's level-3 attentions and head_medium mid and the decoder's
 # level-3 attentions, and the chained trunks (encoder levels 0-1 in the
 # GroupNorm form, decoder levels 1-0 and norm_out in the SpatialNorm form)
+_NO_TRAINING = {"flash_attn_fwd_lse": 0, "flash_attn_bwd_dkdv": 0,
+                "flash_attn_bwd_dq": 0}
 PER_IMAGE = {
-    IMAGE: {"flash_attn_fwd": 4, "chain_gn": 0, "chain_sn": 0,
-            "gn_moments": 0},
-    KODAK: {"flash_attn_fwd": 10, "chain_gn": 8, "chain_sn": 13,
-            "gn_moments": 4},
+    IMAGE: {"flash_attn_fwd": 4, **_NO_TRAINING, "chain_gn": 0,
+            "chain_sn": 0, "gn_moments": 0},
+    KODAK: {"flash_attn_fwd": 10, **_NO_TRAINING, "chain_gn": 8,
+            "chain_sn": 13, "gn_moments": 4},
 }
+# launches per 256x256 batch-2 training step: the four attentions run as
+# FlashAttentionFn (lse forward, dk/dv and dq backward); nothing chains
+PER_TRAIN_STEP = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 4,
+                  "flash_attn_bwd_dkdv": 4, "flash_attn_bwd_dq": 4,
+                  "chain_gn": 0, "chain_sn": 0, "gn_moments": 0}
 
 
 def make_image(seed: int, hw=IMAGE):
@@ -412,20 +639,19 @@ def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int):
     return launches, images
 
 
-def phase_profile(dev: dict, codec, images, label: str) -> None:
-    """torch.profiler over mode-0 round trips of `images`: device busy and
-    idle share of the host wall time, and device time by kernel."""
+def device_profile(run):
+    """torch.profiler over `run()`: (host wall µs, device busy µs, device
+    kernels, device µs by kernel name); busy is None when the profiler
+    recorded no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = len(images)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for img in images:
-            codec.compress(img, *RATIOS[0])
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -435,24 +661,45 @@ def phase_profile(dev: dict, codec, images, label: str) -> None:
             name = e.name[:90]     # template names share long prefixes
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     if not spans:
-        log(f"profile {label}", device_time="not measured (the profiler "
-            "recorded no device events)", wall_ms_per_image=wall_us / n / 1e3)
-        return
+        return wall_us, None, 0, by_name
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):          # union of the device intervals
         if b > end:
             busy += b - max(a, end)
             end = b
-    device_us = sum(by_name.values())
-    share = lambda key: sum(v for k, v in by_name.items() if key in k) / device_us
+    return wall_us, busy, len(spans), by_name
+
+
+def _shares(by_name: dict, keys) -> dict:
+    total = sum(by_name.values())
+    return {key: sum(v for k, v in by_name.items() if key in k) / total
+            for key in keys}
+
+
+def phase_profile(dev: dict, codec, images, label: str) -> None:
+    """torch.profiler over mode-0 round trips of `images`: device busy and
+    idle share of the host wall time, and device time by kernel."""
+    n = len(images)
+
+    def run():
+        for img in images:
+            codec.compress(img, *RATIOS[0])
+
+    wall_us, busy, kernels, by_name = device_profile(run)
+    if busy is None:
+        log(f"profile {label}", device_time="not measured (the profiler "
+            "recorded no device events)", wall_ms_per_image=wall_us / n / 1e3)
+        return
+    shares = _shares(by_name, ("flash_fwd_kernel", "chain_kernel",
+                               "gn_moments_kernel"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     log(f"profile {label}", images=n, wall_ms_per_image=wall_us / n / 1e3,
         device_busy_ms_per_image=busy / n / 1e3,
         device_idle_share=1.0 - busy / wall_us,
-        device_kernels_per_image=len(spans) / n,
-        flash_share_of_device_time=share("flash_fwd_kernel"),
-        chain_share_of_device_time=share("chain_kernel"),
-        moments_share_of_device_time=share("gn_moments_kernel"),
+        device_kernels_per_image=kernels / n,
+        flash_share_of_device_time=shares["flash_fwd_kernel"],
+        chain_share_of_device_time=shares["chain_kernel"],
+        moments_share_of_device_time=shares["gn_moments_kernel"],
         top_kernels_ms_per_image={k: v / n / 1e3 for k, v in top},
         card=dev["nvidia_smi"])
 
@@ -480,7 +727,7 @@ def phase_f32_parity(image) -> None:
     gpu = copy.deepcopy(cpu).cuda()
     x = torch.from_numpy(image).permute(2, 0, 1)[None].contiguous()
     rc, rm = RATIOS[0]
-    before = A.KERNEL_LAUNCHES
+    before = A.KERNEL_LAUNCHES["flash_fwd"]
     with torch.no_grad():
         rg = gpu.route(x.cuda(), rc, rm)
         lat_g = gpu.latent(x.cuda(), rg)
@@ -488,7 +735,8 @@ def phase_f32_parity(image) -> None:
         rcpu = cpu.route(x, rc, rm)
         lat_c = cpu.latent(x, rcpu)
         enc_c = cpu.encode(x, rc, rm)
-    assert A.KERNEL_LAUNCHES > before, "the f32 card run missed the kernel"
+    assert A.KERNEL_LAUNCHES["flash_fwd"] > before, \
+        "the f32 card run missed the kernel"
 
     # masks: differing cells must sit within 1e-5 of their threshold
     e16, e8 = patch_entropy(x, 16)[0], patch_entropy(x, 8)[0]
@@ -557,7 +805,7 @@ def kernels_vs_plain(model, image) -> dict:
         torch.cuda.synchronize()
     if read_launches() != launched:
         raise AssertionError("a kernel launched inside plain_versions()")
-    if not all(launched.values()):
+    if not all(launched[k] for k in PER_IMAGE[KODAK] if PER_IMAGE[KODAK][k]):
         raise AssertionError(f"the kernel run missed a kernel: {launched}")
     err = lambda a, b: (a.float() - b.float()).abs().max().item()
     return {"latent_max_abs_err": err(lat_k, lat_p),
@@ -593,6 +841,249 @@ def phase_kodak_f32(codec, image) -> None:
                                  f"plain versions: {f32}")
 
 
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
+
+
+def train_batches(seed: int, n: int):
+    """n synthetic [-1, 1] NHWC batches of TRAIN_BATCH 256x256 images."""
+    import numpy as np
+    return [np.stack([2.0 * make_image(seed + TRAIN_BATCH * i + j) - 1.0
+                      for j in range(TRAIN_BATCH)]).astype(np.float32)
+            for i in range(n)]
+
+
+class StepRecorder:
+    """A Trainer whose train_step is timed on the host clock around a
+    synchronised step, with each step's kernel launches and metrics kept."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.ms, self.launches, self.metrics = [], [], []
+
+    def train_step(self, state, x):
+        import torch
+        torch.cuda.synchronize()
+        before, t0 = read_launches(), time.perf_counter()
+        state, metrics = self.trainer.train_step(state, x)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        after = read_launches()
+        self.launches.append({k: after[k] - before[k] for k in after})
+        self.metrics.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+
+    def __getattr__(self, name):
+        return getattr(self.trainer, name)
+
+
+def _loop_args(workdir: str, steps: int, tag: str):
+    from control_gic_tpu_torch.cli import train as train_cli
+    return train_cli.get_parser().parse_args([
+        "--train-dir", workdir, "--steps", str(steps), "--log-every", "1",
+        "--ckpt-every", "1000000", "--ckpt-dir",
+        os.path.join(workdir, f"ckpt_{tag}"), "--log-dir",
+        os.path.join(workdir, f"logs_{tag}")])
+
+
+def _check_steps(rec: StepRecorder, label: str) -> None:
+    import math
+    for i, (launched, metrics) in enumerate(zip(rec.launches, rec.metrics)):
+        if launched != PER_TRAIN_STEP:
+            raise AssertionError(f"{label} step {i}: kernel launches "
+                                 f"{launched}, expected {PER_TRAIN_STEP}")
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label} step {i}: non-finite {bad}")
+
+
+def generator_grads(trainer, state, x):
+    """The generator's gradients of one step's loss, and the encode
+    output; nothing in the state changes."""
+    import torch
+    params = list(state.gen.parameters())
+    loss, _, enc, _ = trainer.forward_losses(state,
+                                             trainer.to_input(state, x))
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)], enc
+
+
+def phase_train(dev: dict, workdir: str) -> dict:
+    """Phase 8: the training step at full width, 256x256, batch 2. Returns
+    the kernel launches of the 3 f32 steps."""
+    import numpy as np
+    import torch
+
+    from control_gic_tpu_torch.cli import train as train_cli
+    from control_gic_tpu_torch.models import CGICConfig
+    from control_gic_tpu_torch.ops import plain_versions
+    from control_gic_tpu_torch.train import (TrainConfig, Trainer,
+                                             create_train_state)
+    from control_gic_tpu_torch.utils.checkpoint import (latest_step,
+                                                        restore_checkpoint)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, tcfg = CGICConfig(dtype="float32"), TrainConfig()
+    trainer = Trainer(cfg, tcfg)
+    state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+    batches = train_batches(100, TRAIN_STEPS)
+    names = [n for n, _ in state.gen.named_parameters()]
+
+    # the first step's generator gradients: kernels against plain versions,
+    # with cuDNN's deterministic algorithms so that the comparison sees the
+    # kernels and not run-to-run order; two plain runs give the floor
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    g_k, enc_k = generator_grads(trainer, state, batches[0])
+    torch.cuda.synchronize()
+    launched = read_launches()
+    with plain_versions():
+        g_p, enc_p = generator_grads(trainer, state, batches[0])
+        g_p2, _ = generator_grads(trainer, state, batches[0])
+    torch.backends.cudnn.deterministic = False
+    if launched != PER_TRAIN_STEP:
+        raise AssertionError(f"gradient step launches {launched}, expected "
+                             f"{PER_TRAIN_STEP}")
+    rel = lambda a, b: ((a - b).abs().max()
+                        / max(1e-6, b.abs().max().item())).item()
+    errs = {n: rel(a, b) for n, a, b in zip(names, g_k, g_p)}
+    floor = max(rel(a, b) for a, b in zip(g_p2, g_p))
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log("train gradients kernels vs plain", tensors=len(errs), tol=1e-3,
+        worst_rel_errs=dict(worst), plain_vs_plain_worst_rel_err=floor,
+        vq_indices_equal=bool(torch.equal(enc_k.indices, enc_p.indices)),
+        launches=launched)
+    if not worst[0][1] <= 1e-3:
+        raise AssertionError(f"generator gradients with the kernels differ "
+                             f"from the plain versions: {dict(worst)}")
+    del g_k, g_p, g_p2, enc_k, enc_p
+
+    # 3 steps through the train CLI's loop
+    before = [p.detach().clone() for p in state.gen.parameters()]
+    rec = StepRecorder(trainer)
+    args = _loop_args(workdir, TRAIN_STEPS, "f32")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = train_cli.train_loop(args, rec, state, iter(batches))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_steps(rec, "f32")
+    changed = sum(not torch.equal(a, p) for a, p in
+                  zip(before, state.gen.parameters()))
+    del before
+    if state.step != TRAIN_STEPS or changed < len(names):
+        raise AssertionError(f"after {TRAIN_STEPS} steps: step {state.step}, "
+                             f"{changed} of {len(names)} generator tensors "
+                             f"changed")
+    vm = {k: float(v) for k, v in trainer.eval_step(state, batches[0]).items()}
+    if not all(np.isfinite(list(vm.values()))):
+        raise AssertionError(f"eval metrics not finite: {vm}")
+
+    # the loop's closing checkpoint, restored into a fresh state
+    saved = latest_step(args.ckpt_dir)
+    fresh = create_train_state(cfg, tcfg, device="cuda", seed=7)
+    restore_checkpoint(args.ckpt_dir, fresh)
+    same = (fresh.step == state.step == saved
+            and fresh.ema_num_updates == state.ema_num_updates
+            and torch.equal(fresh.codebook_counts, state.codebook_counts)
+            and all(torch.equal(a, b) for a, b in
+                    zip(fresh.gen.state_dict().values(),
+                        state.gen.state_dict().values()))
+            and all(torch.equal(a, b) for a, b in
+                    zip(fresh.disc.state_dict().values(),
+                        state.disc.state_dict().values()))
+            and all(torch.equal(fresh.ema[k], state.ema[k])
+                    for k in state.ema)
+            and all(torch.equal(a["exp_avg_sq"], b["exp_avg_sq"]) for a, b in
+                    zip(fresh.opt_gen.state.values(),
+                        state.opt_gen.state.values())))
+    del fresh
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the state")
+
+    wall_us, busy, kernels, by_name = device_profile(
+        lambda: trainer.train_step(state, batches[0]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    shares = _shares(by_name, ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                               "flash_bwd_dq_kernel",
+                               "flash_bwd_delta_kernel")) if by_name else {}
+    log("train f32", config="CGICConfig(dtype=float32), 256x256, batch 2",
+        params=sum(p.numel() for p in state.gen.parameters()),
+        steps=TRAIN_STEPS, step_ms=rec.ms,
+        step_ms_mean_2_3=sum(rec.ms[1:]) / len(rec.ms[1:]),
+        launches=launches, launches_per_step=rec.launches[0],
+        metrics_last=rec.metrics[-1], eval_metrics=vm,
+        params_changed=changed, checkpoint_step=saved,
+        checkpoint_restored_equal=same, peak_mem_gib=peak_gib,
+        profile_wall_ms=wall_us / 1e3,
+        device_busy_ms=None if busy is None else busy / 1e3,
+        device_idle_share=None if busy is None else 1.0 - busy / wall_us,
+        device_kernels=kernels, flash_shares_of_device_time=shares,
+        top_kernels_ms={k: v / 1e3 for k, v in top},
+        card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
+    del state, trainer, rec
+    torch.cuda.empty_cache()
+
+    # 2 steps in bf16, same launch checks
+    cfg16 = CGICConfig(dtype="bfloat16")
+    rec16 = StepRecorder(Trainer(cfg16, tcfg))
+    state16 = create_train_state(cfg16, tcfg, device="cuda", seed=0)
+    train_cli.train_loop(_loop_args(workdir, 2, "bf16"), rec16, state16,
+                         iter(train_batches(200, 2)))
+    _check_steps(rec16, "bf16")
+    log("train bf16", steps=2, step_ms=rec16.ms,
+        launches_per_step=rec16.launches[0], metrics_last=rec16.metrics[-1],
+        card=dev["nvidia_smi"])
+    del state16, rec16
+    torch.cuda.empty_cache()
+    phase_train_cli(workdir)
+    return launches
+
+
+def phase_train_cli(workdir: str) -> None:
+    """The train CLI end to end on PNGs, where PIL is installed."""
+    import importlib.util
+    import json as _json
+
+    from control_gic_tpu_torch.utils.checkpoint import latest_step
+
+    if importlib.util.find_spec("PIL") is None:
+        log("train cli", skipped="PIL is not installed on this machine")
+        return
+    from PIL import Image
+    pngs = os.path.join(workdir, "train_pngs")
+    os.makedirs(pngs)
+    for i in range(4):
+        Image.fromarray((make_image(300 + i) * 255).astype("uint8")).save(
+            os.path.join(pngs, f"{i}.png"))
+    ckpt, logs = os.path.join(workdir, "cli_ckpt"), os.path.join(workdir,
+                                                                 "cli_logs")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "control_gic_tpu_torch.cli.train",
+         "--train-dir", pngs, "--steps", "2", "--batch-size", "2",
+         "--log-every", "1", "--ckpt-dir", ckpt, "--log-dir", logs],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        lines = [_json.loads(line) for line in f]
+    if latest_step(ckpt) != 2 or len(lines) != 2:
+        raise AssertionError(f"train CLI: checkpoint {latest_step(ckpt)}, "
+                             f"{len(lines)} metric lines")
+    log("train cli", steps=2, checkpoint_step=2,
+        last_metrics={k: lines[-1][k] for k in ("train/aeloss",
+                                                "train/discloss")},
+        images=sorted(os.listdir(os.path.join(logs, "images"))),
+        seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
     import tempfile
 
@@ -616,18 +1107,32 @@ def main() -> None:
     phase_f32_parity(make_image(0))
     phase_kodak_f32(codec, kodak[0])
     del codec
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        train_launches = phase_train(dev, workdir)
 
+    # each kernel's row at its main path's shape, and its launches there:
+    # the inference kernels on the Kodak round trip, the training kernels
+    # in the 3 f32 training steps
+    train_row = lambda name: next(r for r in rows if r["kernel"] == name
+                                  and r["shape"] == [2, 4096, 4096, 512]
+                                  and r["dtype"] == "float32")
     main_rows = {
         "flash_attn_fwd": next(r for r in rows if r["kernel"] == "flash_attn_fwd"
                                and r["shape"] == [1, 24576, 24576, 512]),
+        "flash_attn_fwd_lse": train_row("flash_attn_fwd_lse"),
+        "flash_attn_bwd_dkdv": train_row("flash_attn_bwd_dkdv"),
+        "flash_attn_bwd_dq": train_row("flash_attn_bwd_dq"),
         "norm_conv_chain": next(r for r in rows if r["kernel"] == "norm_conv_chain"),
         "gn_moments": next(r for r in rows if r["kernel"] == "gn_moments"),
     }
-    kodak_launches = {"flash_attn_fwd": launches["flash_attn_fwd"],
-                      "norm_conv_chain": launches["chain_gn"] + launches["chain_sn"],
-                      "gn_moments": launches["gn_moments"]}
+    main_launches = {"flash_attn_fwd": launches["flash_attn_fwd"],
+                     "flash_attn_fwd_lse": train_launches["flash_attn_fwd_lse"],
+                     "flash_attn_bwd_dkdv": train_launches["flash_attn_bwd_dkdv"],
+                     "flash_attn_bwd_dq": train_launches["flash_attn_bwd_dq"],
+                     "norm_conv_chain": launches["chain_gn"] + launches["chain_sn"],
+                     "gn_moments": launches["gn_moments"]}
     kernels = [dict(name=name, **KERNELS[name],
-                    launches=kodak_launches[name],
+                    launches=main_launches[name],
                     max_abs_err=main_rows[name]["max_abs_err"],
                     ms=main_rows[name]["ms"],
                     plain_ms=main_rows[name]["plain_ms"],

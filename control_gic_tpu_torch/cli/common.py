@@ -15,32 +15,41 @@ from ..utils.device import resolve_device
 
 def build_codec(ckpt: Optional[str] = None,
                 config: Optional[CGICConfig] = None, seed: int = 0,
-                device: Union[str, torch.device] = "cuda") -> CGICCodec:
+                device: Union[str, torch.device] = "cuda",
+                use_ema: bool = False) -> CGICCodec:
     """A CGICCodec on `device` (CUDA unless asked otherwise; raises when CUDA
-    is missing) from a reference `.ckpt`, or with random weights drawn from
-    `seed` when no checkpoint is given.
+    is missing) from a reference `.ckpt`, from the port's training-checkpoint
+    directory (the generator's weights, or the EMA shadow with use_ema, and
+    the codebook counters), or with random weights drawn from `seed` when no
+    checkpoint is given.
 
     config=None is the flagship config with activations in bfloat16 on CUDA
-    and float32 on the CPU."""
+    and float32 on the CPU; a training checkpoint needs the config it was
+    trained with."""
     dev = resolve_device(device)
     if config is None:
         config = CGICConfig(
             dtype="float32" if dev.type == "cpu" else "bfloat16")
     model = CGIC(config, generator=torch.Generator().manual_seed(seed))
     counts = np.ones(config.n_embed, np.int64)
-    if ckpt:
+    if ckpt and os.path.isdir(ckpt):
+        from ..utils.checkpoint import load_checkpoint
+        saved = load_checkpoint(ckpt)
+        model.load_state_dict(saved["ema" if use_ema else "gen"], strict=True)
+        counts = saved["codebook_counts"].numpy().astype(np.int64)
+    elif ckpt:
         if not (os.path.isfile(ckpt)
                 and ckpt.endswith((".ckpt", ".pth", ".pt"))):
             raise FileNotFoundError(f"not a reference checkpoint: {ckpt}")
         from ..utils.from_jax import load_reference_checkpoint
         state, counts = load_reference_checkpoint(ckpt)
         model.load_state_dict(state, strict=True)
-        # counters can be all zero in a fresh checkpoint; keep Huffman valid
-        if counts.sum() == 0:
-            counts = np.ones_like(counts)
     else:
         print("WARNING: no checkpoint given — using random weights "
               "(pipeline demo only; reconstructions will be noise).")
+    # counters can be all zero in a fresh checkpoint; keep Huffman valid
+    if counts.sum() == 0:
+        counts = np.ones_like(counts)
     return CGICCodec(model, counts, device=dev)
 
 

@@ -29,7 +29,8 @@ def get_parser():
     p.add_argument("-i", "--images_dir", type=str, required=True)
     p.add_argument("-o", "--output_dir", type=str, default="./output")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="reference .ckpt; random weights when omitted")
+                   help="reference .ckpt, or a training-checkpoint "
+                        "directory; random weights when omitted")
     p.add_argument("--ratios", type=float, nargs=2, default=(0.1, 0.4),
                    metavar=("COARSE", "MEDIUM"),
                    help="(coarse, medium) grain ratios; fine = 1 - c - m")

@@ -1,1 +1,2 @@
-from .dataset import EvalImageDataset
+from .dataset import (EvalImageDataset, ImageFolderDataset,
+                      prefetch_batches)

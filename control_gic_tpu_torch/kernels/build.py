@@ -31,9 +31,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # stream are c_void_p, so that ctypes never cuts them to 32 bits
 SIGNATURES = {
     "flash_attn_fwd": {
-        "cgic_flash_attn_fwd": (_I, [_P] * 4 + [_I] * 5
+        "cgic_flash_attn_fwd": (_I, [_P] * 5 + [_I] * 5
                                 + [ctypes.c_float, _P]),
         "cgic_flash_attn_smem_bytes": (_L, [_I, _I]),
+    },
+    "flash_attn_bwd": {
+        "cgic_flash_attn_bwd_dkdv": (_I, [_P] * 9 + [_I] * 5
+                                     + [ctypes.c_float, _P]),
+        "cgic_flash_attn_bwd_dq": (_I, [_P] * 7 + [_I] * 5
+                                   + [ctypes.c_float, _P]),
     },
     "norm_conv_chain": {
         "cgic_norm_conv_chain": (_I, [_P] * 15 + [_I] * 9 + [_P]),

@@ -6,6 +6,12 @@
 // at each key tile; p is cast to v's dtype before the PV product; the output is
 // acc / l in q's dtype.
 //
+// With an lse pointer it also replaces ::_flash_lse_kernel (launched by
+// attention_flash_with_lse, the training forward): the epilogue then also
+// stores the per-row logsumexp of the scaled logits, m + log(l), as [B, Tq]
+// f32, the residual that the backward (flash_attn_bwd.cu) reads. Without it
+// (the inference launch) nothing else changes.
+//
 // Shapes: q [B, Tq, C], k and v [B, Tk, C], contiguous; C a multiple of 16, at
 // most 512. Tq and Tk are arbitrary: query rows past Tq are computed on zeros
 // and not stored, key columns past Tk are masked to -inf and their v rows are
@@ -238,7 +244,8 @@ __device__ inline float from_float(float x, float*) { return x; }
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Tq, int Tk, int C, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, int C,
+                 float scale) {
   constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout<T>(C);
@@ -290,11 +297,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int c = idx - r * C;
     ob[(size_t)r * C + c] = from_float(sO[r * L.ldo + c] / sL[r], (T*)nullptr);
   }
+  if (lse != nullptr) {
+    float* lb = lse + (size_t)b * Tq + q0;
+    for (int r = threadIdx.x; r < qvalid; r += blockDim.x) lb[r] = sM[r] + logf(sL[r]);
+  }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, int Tk,
-           int C, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Tq,
+           int Tk, int C, float scale, cudaStream_t stream) {
   const Layout L = make_layout<T>(C);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -303,7 +314,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
   const dim3 grid((Tq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, B);
   flash_fwd_kernel<T><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Tq, Tk, C, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), Tq, Tk, C, scale);
   return (int)cudaGetLastError();
 }
 
@@ -311,14 +322,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 or a cudaError_t code; -1 for
-// arguments the kernel does not take.
-int cgic_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                        int Tq, int Tk, int C, int dtype, float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or [B, Tq] f32 for the
+// logsumexp. Returns 0 or a cudaError_t code; -1 for arguments the kernel does
+// not take.
+int cgic_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int B, int Tq, int Tk, int C, int dtype, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || C <= 0 || C % 16 != 0 || C > kMaxC) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<bf16>(q, k, v, o, B, Tq, Tk, C, scale, s);
-  if (dtype == 0) return launch<float>(q, k, v, o, B, Tq, Tk, C, scale, s);
+  if (dtype == 1) return launch<bf16>(q, k, v, o, lse, B, Tq, Tk, C, scale, s);
+  if (dtype == 0) return launch<float>(q, k, v, o, lse, B, Tq, Tk, C, scale, s);
   return -1;
 }
 

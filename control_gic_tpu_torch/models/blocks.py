@@ -18,6 +18,7 @@ proj_out, nin_shortcut, downsample.conv, upsample.conv), weights OIHW.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,6 +34,13 @@ from ..ops.resample import nearest_resize, upsample2_conv3x3
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's lecun_normal, in place: a normal truncated at ±2 std,
+    rescaled so that its std is sqrt(1 / fan_in)."""
+    std = math.sqrt(1.0 / w[0].numel()) / .87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 class Conv2d(nn.Module):

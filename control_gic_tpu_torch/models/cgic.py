@@ -10,7 +10,6 @@ Images are NCHW; the ratios are Python floats, so the mode is a Python int.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -21,7 +20,7 @@ from ..ops.quantize import codebook_gather, vq_quantize
 from ..ops.resample import upsample_nearest
 from ..ops.router import (RouterOutput, grain_indices_from_masks,
                           triple_grain_router)
-from .blocks import Conv2d, GroupNorm32
+from .blocks import Conv2d, GroupNorm32, lecun_normal_
 from .decoder import Decoder
 from .encoder import Encoder
 
@@ -105,12 +104,7 @@ class CGIC(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         for mod in self.modules():
             if isinstance(mod, Conv2d):
-                fan_in = mod.weight[0].numel()
-                # flax lecun_normal: truncated normal at +-2 std, rescaled
-                # so that its std is sqrt(1 / fan_in)
-                std = math.sqrt(1.0 / fan_in) / .87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                      2 * std, generator=generator)
+                lecun_normal_(mod.weight, generator)
                 mod.bias.zero_()
             elif isinstance(mod, GroupNorm32):
                 mod.weight.fill_(1.0)

@@ -10,7 +10,8 @@ pointwise math runs in the activation dtype. Tensors are NCHW.
 The moment pass (JAX `_gn_stats_pallas`) is the per-channel sum and sum of
 squares over H*W, [B, 2, C] f32, then a group fold to per-channel (mean,
 rstd). `gn_moments` launches the CUDA kernel kernels/gn_moments.cu for CUDA
-tensors and runs `gn_moments_reference` for CPU tensors.
+tensors, inside `_GnMomentsFn` where x needs a gradient, and runs
+`gn_moments_reference` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -63,6 +64,9 @@ def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"gn_moments_kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("gn_moments_kernel records no gradient; under "
+                           "grad call gn_moments()")
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"expected a non-empty [B, C, H, W] tensor, got "
                          f"{tuple(x.shape)}")
@@ -85,10 +89,30 @@ def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
     return mom
 
 
+class _GnMomentsFn(torch.autograd.Function):
+    """The moment kernel with a gradient: d/dx of (sum, sumsq) over H*W is
+    g_sum + 2·x·g_sumsq, broadcast over the pixels, in f32 and then cast to
+    x's dtype (what XLA's differentiation of the JAX stats fold gives)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return gn_moments_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        g = g.float()[..., None, None]                  # [B, 2, C, 1, 1]
+        return (g[:, 0] + 2.0 * x.float() * g[:, 1]).to(x.dtype)
+
+
 def gn_moments(x: torch.Tensor) -> torch.Tensor:
-    """[B, 2, C] f32 moments of x: the kernel for CUDA tensors, the plain
-    version for CPU tensors (and inside ops.plain_versions())."""
+    """[B, 2, C] f32 moments of x: the kernel for CUDA tensors (inside
+    _GnMomentsFn where x needs a gradient), the plain version for CPU
+    tensors (and inside ops.plain_versions())."""
     if use_kernel(x):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _GnMomentsFn.apply(x)
         return gn_moments_kernel(x)
     return gn_moments_reference(x)
 

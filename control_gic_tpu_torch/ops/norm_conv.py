@@ -13,7 +13,9 @@ its moments to the next block's conv1, which skips its own stats pass.
     come from `gn_moments` when none are given; then the CUDA kernel
     kernels/norm_conv_chain.cu for CUDA tensors, or the plain versions
     `chain_reference` / `plain_chain_reference` for CPU tensors (and inside
-    ops.plain_versions()).
+    ops.plain_versions()). Where a gradient is needed the kernel runs inside
+    `_ChainFn` (JAX `_chain_custom`), whose backward recomputes through the
+    plain version and differentiates that.
   - `chain_admissible`: where the model takes the chained path, the JAX
     package's rule: both convs shape-admissible and at least CHAIN_MIN_ELEMS
     elements per sample.
@@ -161,6 +163,10 @@ def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
         raise ValueError("chain_kernel launches a CUDA kernel and takes CUDA "
                          "tensors only; use spatial_norm_conv_mom() or "
                          "group_norm_conv_mom() for CPU tensors")
+    if _needs_grad(x, cw, cb, gs, gb, *stats, res, zq_r, wy, by, wb, bb):
+        raise RuntimeError("chain_kernel records no gradient; under grad "
+                           "call spatial_norm_conv_mom() or "
+                           "group_norm_conv_mom()")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"chain_kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
@@ -185,13 +191,12 @@ def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
     lib = build.load("norm_conv_chain")
     bn = lib.cgic_norm_conv_chain_block_n(cout)
     coutp = -(-cout // bn) * bn
-    f32 = lambda t: t.detach().to(dev, torch.float32).contiguous()
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
     # [Cout, Cin, 3, 3] -> [9 taps (dy, dx), Cin, CoutP], zero-padded along N
     wpk = torch.zeros(9, cin, coutp, dtype=x.dtype, device=dev)
-    wpk[:, :, :cout] = cw.detach().to(dev).permute(2, 3, 1, 0).reshape(
-        9, cin, cout)
+    wpk[:, :, :cout] = cw.to(dev).permute(2, 3, 1, 0).reshape(9, cin, cout)
     bias = torch.zeros(coutp, dtype=torch.float32, device=dev)
-    bias[:cout] = cb.detach().to(dev, torch.float32)
+    bias[:cout] = cb.to(dev, torch.float32)
     # every tensor whose pointer the kernel gets stays referenced until the
     # launch is enqueued
     norm = [f32(stats[0]), f32(stats[1]), f32(gs), f32(gb)]
@@ -222,12 +227,74 @@ def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
     return out, part.sum(dim=1)
 
 
+# ---------------------------------------------------------------- gradient
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _ChainFn(torch.autograd.Function):
+    """The chain kernel with a gradient (JAX `_chain_custom`): the forward
+    launches the kernel; the backward reruns the plain version on the saved
+    inputs under autograd and differentiates it, giving the cotangents of
+    x, zq_r, the norm and modulation parameters, the conv weights, the
+    residual and the given stats. Inputs: modulate, act_swish, emit_mom,
+    then x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, mean_c, rstd_c (the
+    SpatialNorm-only and optional ones may be None)."""
+
+    @staticmethod
+    def forward(ctx, modulate, act_swish, emit_mom, x, zq_r, gs, gb, wy, by,
+                wb, bb, cw, cb, res, mean_c, rstd_c):
+        ctx.flags = (modulate, act_swish, emit_mom)
+        ctx.save_for_backward(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res,
+                              mean_c, rstd_c)
+        mod = (zq_r, wy, by, wb, bb) if modulate else (None,) * 5
+        return chain_kernel(x, cw, cb, gs, gb, (mean_c, rstd_c), res,
+                            emit_mom, act_swish, *mod)
+
+    @staticmethod
+    def backward(ctx, g_out, g_mom=None):
+        modulate, act_swish, emit_mom = ctx.flags
+        need = ctx.needs_input_grad[3:]
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, mean_c, rstd_c = leaves
+        kw = dict(res=res, stats=(mean_c, rstd_c), act_swish=act_swish,
+                  emit_mom=emit_mom)
+        with torch.enable_grad():
+            if modulate:
+                outs = chain_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw,
+                                       cb, **kw)
+            else:
+                outs = plain_chain_reference(x, gs, gb, cw, cb, **kw)
+        outs, grads_out = ((outs, (g_out, g_mom)) if emit_mom
+                           else ((outs,), (g_out,)))
+        wanted = [t for t, n in zip(leaves, need) if n and t is not None]
+        got = iter(torch.autograd.grad(outs, wanted, grads_out,
+                                       allow_unused=True))
+        return (None, None, None) + tuple(
+            next(got) if n and t is not None else None
+            for t, n in zip(leaves, need))
+
+
 # ---------------------------------------------------------------- dispatch
 
 def _stats_for(x: torch.Tensor, stats: Optional[Stats]) -> Stats:
     if stats is None:
         return stats_from_moments(gn_moments(x), x.shape[2] * x.shape[3])
     return stats
+
+
+def _launch(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, stats, act_swish,
+            emit_mom):
+    """The kernel, inside _ChainFn where any input needs a gradient."""
+    modulate = zq_r is not None
+    if _needs_grad(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, *stats):
+        return _ChainFn.apply(modulate, act_swish, emit_mom, x, zq_r, gs, gb,
+                              wy, by, wb, bb, cw, cb, res, *stats)
+    return chain_kernel(x, cw, cb, gs, gb, stats, res, emit_mom, act_swish,
+                        zq_r, wy, by, wb, bb)
 
 
 def spatial_norm_conv_mom(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=None,
@@ -239,8 +306,8 @@ def spatial_norm_conv_mom(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=None,
     cw: [Cout, Cin, 3, 3]. Returns out, or (out, mom [B, 2, Cout])."""
     stats = _stats_for(x, stats)
     if use_kernel(x):
-        return chain_kernel(x, cw, cb, gs, gb, stats, res, emit_mom,
-                            act_swish, zq_r, wy, by, wb, bb)
+        return _launch(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, stats,
+                       act_swish, emit_mom)
     return chain_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=res,
                            stats=stats, act_swish=act_swish,
                            emit_mom=emit_mom)
@@ -253,8 +320,8 @@ def group_norm_conv_mom(x, gs, gb, cw, cb, res=None,
     spatial_norm_conv_mom."""
     stats = _stats_for(x, stats)
     if use_kernel(x):
-        return chain_kernel(x, cw, cb, gs, gb, stats, res, emit_mom,
-                            act_swish)
+        return _launch(x, None, gs, gb, None, None, None, None, cw, cb, res,
+                       stats, act_swish, emit_mom)
     return plain_chain_reference(x, gs, gb, cw, cb, res=res, stats=stats,
                                  act_swish=act_swish, emit_mom=emit_mom)
 

@@ -5,7 +5,11 @@ from a reference PyTorch checkpoint.
 control_gic_tpu/utils/port_torch.py::port_cgic_state_dict: it maps the flax
 params tree (numpy leaves) onto the reference state_dict key names that the
 port's modules carry, with conv kernels HWIO -> OIHW and norm `scale` ->
-`weight`. `load_reference_checkpoint` reads a reference `.ckpt` as is.
+`weight`. `lpips_state_dict_from_flax` (the inverse of
+`load_lpips_backbone`, plus the lin heads) and `disc_state_dict_from_flax`
+(params and BatchNorm `batch_stats`) do the same for the training losses'
+modules; the tests use them. `load_reference_checkpoint` reads a reference
+`.ckpt` as is.
 """
 from __future__ import annotations
 
@@ -94,3 +98,67 @@ def load_reference_checkpoint(path: str
         if m:
             counts[int(m.group(1))] = int(float(v.reshape(-1)[0]))
     return model_sd, counts
+
+
+# torchvision `features.<i>` conv index -> the JAX package's flax module name
+_LPIPS_CONVS = {
+    "alex": {0: "conv0", 3: "conv1", 6: "conv2", 8: "conv3", 10: "conv4"},
+    "vgg": {i: f"conv{n}" for n, i in
+            enumerate((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28))},
+}
+_SQUEEZE_FIRES = (3, 4, 6, 7, 9, 10, 11, 12)
+
+
+def _conv(prefix: str, leaf: Mapping) -> Dict[str, torch.Tensor]:
+    kernel = np.transpose(np.array(leaf["kernel"], np.float32), (3, 2, 0, 1))
+    out = {f"{prefix}.weight": torch.from_numpy(np.ascontiguousarray(kernel))}
+    if "bias" in leaf:
+        out[f"{prefix}.bias"] = torch.from_numpy(
+            np.array(leaf["bias"], np.float32))
+    return out
+
+
+def lpips_state_dict_from_flax(params: Mapping, net: str = "alex"
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax LPIPS params {'net': {...}, 'lin0': [c], ...} -> the port's
+    LPIPS state_dict (torchvision `net.<index>` keys, `lin<k>` heads)."""
+    net = "vgg" if net == "vgg16" else net
+    backbone = params["net"]
+    sd: Dict[str, torch.Tensor] = {}
+    if net in _LPIPS_CONVS:
+        for i, name in _LPIPS_CONVS[net].items():
+            sd.update(_conv(f"net.{i}", backbone[name]))
+    elif net == "squeeze":
+        sd.update(_conv("net.0", backbone["conv0"]))
+        for i in _SQUEEZE_FIRES:
+            for sub in ("squeeze", "expand1x1", "expand3x3"):
+                sd.update(_conv(f"net.{i}.{sub}", backbone[f"fire{i}"][sub]))
+    else:
+        raise ValueError(f"unknown LPIPS backbone {net!r}")
+    for k, v in params.items():
+        if k.startswith("lin"):
+            sd[k] = torch.from_numpy(np.array(v, np.float32))
+    return sd
+
+
+def disc_state_dict_from_flax(variables: Mapping
+                              ) -> Dict[str, torch.Tensor]:
+    """Flax NLayerDiscriminator variables {'params': ..., 'batch_stats':
+    ...} -> the port's state_dict: convs OIHW, BatchNorm scale/bias as
+    weight/bias and its batch_stats mean/var as running_mean/running_var,
+    ActNorm loc/scale as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))
+    for name, leaf in variables["params"].items():
+        if "kernel" in leaf:
+            sd.update(_conv(name, leaf))
+        elif "loc" in leaf:                      # ActNorm
+            sd[f"{name}.loc"] = f32(leaf["loc"])
+            sd[f"{name}.scale"] = f32(leaf["scale"])
+        else:                                    # BatchNorm
+            sd[f"{name}.weight"] = f32(leaf["scale"])
+            sd[f"{name}.bias"] = f32(leaf["bias"])
+    for name, stats in variables.get("batch_stats", {}).items():
+        sd[f"{name}.running_mean"] = f32(stats["mean"])
+        sd[f"{name}.running_var"] = f32(stats["var"])
+    return sd

@@ -10,13 +10,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "control_gic_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "control_gic_tpu")
 
-CHECK = """
-import sys
+MODULES = """
 import control_gic_tpu_torch, control_gic_tpu_torch.codec
 import control_gic_tpu_torch.cli.infer, control_gic_tpu_torch.utils.from_jax
 import control_gic_tpu_torch.ops.norm_conv, control_gic_tpu_torch.ops.fused_norm
 import control_gic_tpu_torch.kernels.build
+import control_gic_tpu_torch.cli.train, control_gic_tpu_torch.cli.common
+import control_gic_tpu_torch.config, control_gic_tpu_torch.train
+import control_gic_tpu_torch.models.lpips
+import control_gic_tpu_torch.models.discriminator
+import control_gic_tpu_torch.utils.checkpoint, control_gic_tpu_torch.utils.logging
+import control_gic_tpu_torch.utils.draw, control_gic_tpu_torch.data
 import chip_smoke
+"""
+CHECK = """
+import sys
+{modules}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 assert not bad, bad
@@ -25,12 +34,22 @@ print("ok")
 """
 
 
-def test_import_pulls_in_no_jax():
-    out = subprocess.run(
-        [sys.executable, "-c", CHECK.format(forbidden=set(FORBIDDEN))],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
+def _run(code: str):
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_import_pulls_in_no_jax():
+    _run(CHECK.format(modules=MODULES, forbidden=set(FORBIDDEN)))
+
+
+def test_import_pulls_in_no_optional_package():
+    """PIL, PyYAML and wandb are imported where they are needed (reading an
+    image, a config, logging to wandb), never by importing a module: the
+    card's machine need not have them."""
+    _run(CHECK.format(modules=MODULES, forbidden={"PIL", "yaml", "wandb"}))
 
 
 def _sources():

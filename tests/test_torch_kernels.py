@@ -44,10 +44,10 @@ def _qkv(device, b, tq, tk, c, dtype, seed):
                                           (3, 64, 65, 16)])
 def test_flash_kernel_matches_plain(cuda, b, tq, tk, c, dtype, tol):
     q, k, v = _qkv(cuda, b, tq, tk, c, dtype, tq + tk + c)
-    before = A.KERNEL_LAUNCHES
+    before = A.KERNEL_LAUNCHES["flash_fwd"]
     out = A.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert A.KERNEL_LAUNCHES == before + 1
+    assert A.KERNEL_LAUNCHES["flash_fwd"] == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     err = (out.float() - A.attention_reference(q, k, v).float()).abs().max()
     assert err.item() <= tol
@@ -66,19 +66,130 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_dispatch_engages_the_kernel_from_4096_keys(cuda):
-    before = A.KERNEL_LAUNCHES
+    before = A.KERNEL_LAUNCHES["flash_fwd"]
     A.attention(*_qkv(cuda, 1, 1024, 1024, 64, torch.bfloat16, 2))
-    assert A.KERNEL_LAUNCHES == before
+    assert A.KERNEL_LAUNCHES["flash_fwd"] == before
     A.attention(*_qkv(cuda, 1, 256, 4096, 64, torch.bfloat16, 3))
-    assert A.KERNEL_LAUNCHES == before + 1
+    assert A.KERNEL_LAUNCHES["flash_fwd"] == before + 1
 
 
 def test_dispatch_stays_plain_where_jax_blocks_do_not_divide(cuda):
-    before = A.KERNEL_LAUNCHES
+    before = A.KERNEL_LAUNCHES["flash_fwd"]
     out = A.attention(*_qkv(cuda, 1, 4112, 4112, 64, torch.bfloat16, 4))
-    assert A.KERNEL_LAUNCHES == before and out.shape == (1, 4112, 64)
+    assert A.KERNEL_LAUNCHES["flash_fwd"] == before
+    assert out.shape == (1, 4112, 64)
     A.attention(*_qkv(cuda, 1, 6144, 6144, 64, torch.bfloat16, 5))
-    assert A.KERNEL_LAUNCHES == before + 1
+    assert A.KERNEL_LAUNCHES["flash_fwd"] == before + 1
+
+
+# ------------------------------------------------------- attention gradient
+
+def _grads(fn, q, k, v, do):
+    """(out, dq, dk, dv) of fn(q, k, v) for the output gradient do."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+
+def test_attention_gradient_reaches_q_k_v(cuda):
+    """The gradient fault: attention() through the kernel on CUDA tensors
+    must give q, k and v the gradient that the plain version gives, not
+    drop it."""
+    q, k, v = _qkv(cuda, 1, 4096, 4096, 64, torch.float32, 11)
+    do = torch.randn_like(q)
+    got = _grads(A.attention, q, k, v, do)
+    with plain_versions():
+        want = _grads(A.attention, q, k, v, do)
+    for g, w in zip(got, want):
+        assert g is not None and _rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b, tq, tk, c", [(2, 256, 256, 64),
+                                          (1, 100, 130, 64),
+                                          (2, 33, 4096, 512),
+                                          (1, 4096, 4096, 256)])
+def test_flash_lse_matches_logsumexp(cuda, dtype, b, tq, tk, c):
+    q, k, v = _qkv(cuda, b, tq, tk, c, dtype, 3 * tq + c)
+    before = dict(A.KERNEL_LAUNCHES)
+    out, lse = A.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert A.KERNEL_LAUNCHES == {**before, "flash_fwd_lse":
+                                 before["flash_fwd_lse"] + 1}
+    assert lse.shape == (b, tq) and lse.dtype == torch.float32
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * c ** -0.5
+    assert _rel_err(lse, torch.logsumexp(logits, -1)) <= 1e-5
+    assert torch.equal(out, A.flash_attention(q, k, v))    # the flag alone
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b, tq, tk, c", [(2, 256, 256, 64),
+                                          (1, 100, 130, 64),
+                                          (1, 512, 4096, 128),
+                                          (2, 4096, 4096, 512),
+                                          (1, 4096, 4096, 256),
+                                          (3, 64, 65, 16)])
+def test_flash_backward_matches_autograd_of_plain(cuda, dtype, b, tq, tk, c):
+    q, k, v = _qkv(cuda, b, tq, tk, c, dtype, tq + 2 * tk + c)
+    do = torch.randn(b, tq, c, device=cuda).to(dtype)
+    before = dict(A.KERNEL_LAUNCHES)
+    got = _grads(A.FlashAttentionFn.apply, q, k, v, do)
+    torch.cuda.synchronize()
+    assert A.KERNEL_LAUNCHES == {
+        **before, **{key: before[key] + 1 for key in
+                     ("flash_fwd_lse", "flash_bwd_dkdv", "flash_bwd_dq")}}
+    want = _grads(A.attention_reference, q, k, v, do)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= OUT_TOL[dtype], name
+
+
+def test_flash_backward_is_bit_stable(cuda):
+    q, k, v = _qkv(cuda, 2, 1000, 1500, 64, torch.bfloat16, 9)
+    o, lse = A.flash_attention(q, k, v, return_lse=True)
+    do = torch.randn_like(q)
+    first = A.flash_attention_backward(q, k, v, o, lse, do)
+    second = A.flash_attention_backward(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_dispatch_under_grad_takes_the_lse_forward_and_backward(cuda):
+    q, k, v = _qkv(cuda, 1, 4096, 4096, 32, torch.bfloat16, 12)
+    before = dict(A.KERNEL_LAUNCHES)
+    with torch.no_grad():
+        A.attention(q, k, v)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    A.attention(*leaves).float().sum().backward()
+    assert A.KERNEL_LAUNCHES == {key: n + 1 for key, n in before.items()}
+    assert all(t.grad is not None for t in leaves)
+
+
+def test_reference_backward_switch(cuda, monkeypatch):
+    """CONTROL_GIC_FLASH_BWD=xla: the forward kernel without the lse and
+    the backward through autograd of the plain version."""
+    monkeypatch.setenv("CONTROL_GIC_FLASH_BWD", "xla")
+    q, k, v = _qkv(cuda, 1, 512, 4096, 64, torch.float32, 13)
+    do = torch.randn_like(q)
+    before = dict(A.KERNEL_LAUNCHES)
+    got = _grads(A.attention, q, k, v, do)
+    assert A.KERNEL_LAUNCHES == {**before,
+                                 "flash_fwd": before["flash_fwd"] + 1}
+    want = _grads(A.attention_reference, q, k, v, do)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-4
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 64, 32, torch.float32, 0)
+    o, lse = A.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        A.flash_attention_backward(q, k, v, o, lse[:, :32].contiguous(), o)
+    with pytest.raises(TypeError):
+        A.flash_attention_backward(q, k, v, o, lse, o.bfloat16())
+    with pytest.raises(RuntimeError, match="gradient"):
+        A.flash_attention(q.requires_grad_(), k, v)
 
 
 # ------------------------------------------------------- chained norm+conv
@@ -147,6 +258,57 @@ def test_chain_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w):
         assert _rel_err(got, want) <= OUT_TOL[dtype], what
 
 
+def _chain_grads(a, modulate, with_res, stats_from_x):
+    """Gradients of a fixed projection of the chain's (out, mom) with
+    respect to every input, with stats from the moment pass of x when
+    stats_from_x, else given as leaves."""
+    names = ["x", "gs", "gb", "cw", "cb"] + (["res"] if with_res else [])
+    names += ["zq_r", "wy", "by", "wb", "bb"] if modulate else []
+    leaves = {n: a[n].detach().clone().requires_grad_() for n in names}
+    b = {**a, **leaves}
+    if stats_from_x:
+        stats = None
+    else:
+        mom = FN.gn_moments_reference(a["x"]).requires_grad_()
+        leaves["mom_in"] = mom
+        stats = NC.stats_from_moments(mom, a["x"].shape[2] * a["x"].shape[3])
+    out, mom_out = _chain(b, modulate, with_res, stats, True)
+    g = torch.Generator(device=out.device).manual_seed(5)
+    loss = ((out.float() * torch.randn(out.shape, device=out.device,
+                                       generator=g)).sum()
+            + 1e-3 * (mom_out * torch.randn(mom_out.shape,
+                                            device=out.device,
+                                            generator=g)).sum())
+    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("modulate", [True, False], ids=["sn", "gn"])
+@pytest.mark.parametrize("with_res, stats_from_x", [(True, False),
+                                                    (False, True)])
+def test_chain_gradients_match_plain(cuda, modulate, with_res, stats_from_x):
+    """The chain under grad (_ChainFn, and _GnMomentsFn for the stats)
+    against autograd of the plain versions, in f32."""
+    a = _chain_inputs(cuda, 2, 128, 128, 16, 32, torch.float32, 21)
+    before = dict(NC.KERNEL_LAUNCHES)
+    got = _chain_grads(a, modulate, with_res, stats_from_x)
+    key = "chain_sn" if modulate else "chain_gn"
+    assert NC.KERNEL_LAUNCHES[key] == before[key] + 1
+    with plain_versions():
+        want = _chain_grads(a, modulate, with_res, stats_from_x)
+    for name in want:
+        assert _rel_err(got[name], want[name]) <= 1e-4, name
+
+
+def test_moment_gradient_matches_plain(cuda):
+    x = torch.randn(2, 64, 24, 40, device=cuda, requires_grad=True)
+    g = torch.randn(2, 2, 64, device=cuda)
+    before = FN.KERNEL_LAUNCHES["gn_moments"]
+    got, = torch.autograd.grad(FN.gn_moments(x), x, g)
+    assert FN.KERNEL_LAUNCHES["gn_moments"] == before + 1
+    want, = torch.autograd.grad(FN.gn_moments_reference(x), x, g)
+    assert _rel_err(got, want) <= 1e-5
+
+
 def test_chain_kernel_is_bit_stable(cuda):
     a = _chain_inputs(cuda, 1, 128, 128, 64, 64, torch.bfloat16, 7)
     out1, mom1 = _chain(a, True, True, None, True)
@@ -180,6 +342,8 @@ def test_chain_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         NC.chain_kernel(a["x"].cpu(), a["cw"], a["cb"], a["gs"], a["gb"],
                         stats)
+    with pytest.raises(RuntimeError, match="gradient"):
+        call(cw=a["cw"].clone().requires_grad_())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -211,3 +375,5 @@ def test_moment_kernel_refuses_what_it_does_not_take(cuda):
         FN.gn_moments_kernel(x[0])
     with pytest.raises(ValueError, match="CUDA"):
         FN.gn_moments_kernel(x.cpu())
+    with pytest.raises(RuntimeError, match="gradient"):
+        FN.gn_moments_kernel(x.requires_grad_())
