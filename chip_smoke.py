@@ -26,15 +26,28 @@ Phases, each printing a line of its own:
      ops.plain_versions(), 3 steps with exact launch counts per step, one
      eval step, a checkpoint save and restore, a profile of one step; then 2
      bf16 steps with the same launch checks, and the train CLI on PNGs when
-     PIL is installed.
+     PIL is installed;
+  9. 256x256 with CONTROL_GIC_FUSED_NORM=1: the phase-4 round trip with the
+     SpatialNorm apply kernel, launch counts and a profile;
+ 10. high-res tiled codec: cli/infer_highres.main on a 1356x2040 PNG (the
+     DIV2K shape class; the CLI crops it to 1344x2032, 6 tiles of 768 px in 4
+     shape groups) at full width in bf16, under the default switches, under
+     CONTROL_GIC_CHAIN=0 + CONTROL_GIC_NORM_CONV=1 and under
+     CONTROL_GIC_FUSED_NORM=1, each with bpp, PSNR, ms per image and exact
+     launch counts, the first two profiled;
+ 11. tile f32: one 768x768 tile through the f32 model with all three
+     switches set, kernels against ops.plain_versions().
 Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
-and dq backward) and the gradients of the chain and the moment pass against
-their plain versions. Then the kernel JSON line, and last the device JSON
+and dq backward), the SpatialNorm apply and the per-call norm+conv, and the
+gradients of the chain, the per-call op, the switched SpatialNorm and the
+moment pass against their plain versions. The switches are set and restored
+inside this process. Then the kernel JSON line, and last the device JSON
 line. Any failure raises and the script exits non-zero without the last
 line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -73,13 +86,24 @@ KERNELS = {
         "source": "control_gic_tpu_torch/kernels/gn_moments.cu",
         "replaces": "control_gic_tpu/ops/fused_norm.py:101",
     },
+    "spatial_norm_apply": {
+        "route": "cuda",
+        "source": "control_gic_tpu_torch/kernels/spatial_norm_apply.cu",
+        "replaces": "control_gic_tpu/ops/fused_norm.py:151",
+    },
+    "norm_conv": {
+        "route": "cuda",
+        "source": "control_gic_tpu_torch/kernels/norm_conv_chain.cu",
+        "replaces": "control_gic_tpu/ops/norm_conv.py:79",
+    },
 }
 # shapes the main paths give the attention kernel: (B, Tq, Tk, C, dtype);
-# 4096 tokens at 256x256, 24576 and 6144 at 512x768
+# 4096 tokens at 256x256, 24576 and 6144 at 512x768, 36864 on a 768-px tile
 ATTN_SHAPES = [(1, 4096, 4096, 512, "bfloat16"), (1, 4096, 4096, 256, "bfloat16"),
                (2, 4096, 4096, 512, "float32"), (1, 1024, 4096, 512, "bfloat16"),
                (1, 24576, 24576, 512, "bfloat16"), (1, 24576, 24576, 256, "bfloat16"),
-               (1, 6144, 6144, 512, "bfloat16")]
+               (1, 6144, 6144, 512, "bfloat16"), (1, 36864, 36864, 512, "bfloat16"),
+               (1, 36864, 36864, 256, "bfloat16")]
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the chain kernel's calls on the 512x768 path: (norm form, H, W, Cin, Cout,
 # residual, emits moments, dtype); the f32 row is the parity path
@@ -108,6 +132,31 @@ CHAIN_GRAD_SHAPES = [("gn", 256, 384, 256, 256, True),
 # the moment pass's inputs on the 512x768 path: (B, C, H, W), bf16
 MOMENT_SHAPES = [(1, 128, 512, 768), (1, 128, 256, 384), (1, 256, 256, 384),
                  (1, 256, 512, 768)]
+# the SpatialNorm apply kernel's inputs under CONTROL_GIC_FUSED_NORM=1:
+# (B, C, H, W, swish, dtype); a 768-px tile's decoder mids and their
+# attention norm, the 768x496 tile's level-1 blocks, the 256x256 path's
+# mids and level 0, and f32
+APPLY_SHAPES = [(1, 512, 192, 192, True, "bfloat16"),
+                (1, 512, 192, 192, False, "bfloat16"),
+                (1, 256, 384, 248, True, "bfloat16"),
+                (1, 512, 64, 64, True, "bfloat16"),
+                (1, 128, 256, 256, True, "bfloat16"),
+                (1, 512, 192, 192, True, "float32"),
+                (1, 128, 256, 256, False, "float32")]
+# the per-call norm+conv's calls on a 768-px tile with CONTROL_GIC_NORM_CONV=1
+# (and CONTROL_GIC_CHAIN=0 for the trunks): (norm form, H, W, Cin, Cout,
+# dtype); the decoder mids, the encoder fine head's blocks and conv_out, the
+# decoder's norm_out + conv_out; then f32
+NORM_CONV_SHAPES = [("sn", 192, 192, 512, 512, "bfloat16"),
+                    ("gn", 192, 192, 256, 256, "bfloat16"),
+                    ("gn", 192, 192, 256, 4, "bfloat16"),
+                    ("sn", 768, 768, 128, 3, "bfloat16"),
+                    ("gn", 192, 192, 256, 4, "float32"),
+                    ("sn", 192, 192, 512, 512, "float32")]
+# gradient checks of the per-call op (form, H, W, Cin, Cout) and of the
+# switched SpatialNorm (B, C, H, W), f32
+NORM_CONV_GRAD_SHAPES = [("sn", 192, 192, 512, 512), ("gn", 192, 192, 256, 4)]
+APPLY_GRAD_SHAPES = [(1, 512, 64, 64), (1, 128, 256, 256)]
 # max |kernel - plain| <= tol * max(1, max |plain|), for outputs and moments
 OUT_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 MOM_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
@@ -155,6 +204,22 @@ def bound_ms(flops: float, nbytes: float, dtype: str, peaks) -> tuple:
 def rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max()
             / max(1.0, want.float().abs().max().item())).item()
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """Set the engagement switches (environment variables, read at call
+    time) inside this process, and restore them on the way out."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _counters():
@@ -262,7 +327,10 @@ def phase_kernels(dev: dict) -> list:
     rows += train_attn_rows(dev, peaks, gen)
     rows += chain_rows(dev, peaks, gen)
     rows += moment_rows(dev, peaks, gen)
+    rows += apply_rows(dev, peaks, gen)
+    rows += norm_conv_rows(dev, peaks, gen)
     chain_grad_checks(gen)
+    switched_grad_checks(gen)
     return rows
 
 
@@ -540,28 +608,212 @@ def moment_rows(dev: dict, peaks, gen) -> list:
     return rows
 
 
+def _norm_inputs(r, c, h, w, dtype, modulate=True):
+    """x, the norm parameters and (modulate) zq_r and the 1x1 convs."""
+    out = dict(x=(0.3 + r(1, c, h, w)).to(dtype), gs=1 + r(c, scale=0.1),
+               gb=r(c, scale=0.1))
+    if modulate:
+        out.update(zq_r=r(1, 4, h, w).to(dtype), wy=r(c, 4, scale=0.3),
+                   by=r(c, scale=0.1), wb=r(c, 4, scale=0.3),
+                   bb=r(c, scale=0.1))
+    return out
+
+
+def apply_rows(dev: dict, peaks, gen) -> list:
+    """The SpatialNorm apply kernel at APPLY_SHAPES, its stats given (as the
+    moment pass gives them), against its plain version
+    spatial_norm_kernel_act; no library call computes it."""
+    import torch
+
+    from control_gic_tpu_torch.ops import fused_norm as FN
+
+    rows = []
+    for b, c, h, w, swish, dt in APPLY_SHAPES:
+        dtype = getattr(torch, dt)
+        r = lambda *s, scale=1.0: scale * torch.randn(*s, device="cuda",
+                                                      generator=gen)
+        a = _norm_inputs(r, c, h, w, dtype)
+        x, zq_r = a.pop("x"), a.pop("zq_r")
+        stats = FN.gn_stats_from_moments(FN.gn_moments_reference(x), h * w)
+        p = [a[k] for k in ("gs", "gb", "wy", "by", "wb", "bb")]
+        kernel = lambda: FN.spatial_norm_apply_kernel(x, zq_r, *p, stats,
+                                                      swish)
+        plain = lambda: FN.spatial_norm_kernel_act(x, zq_r, *p, swish, stats)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        bms, bound_by = bound_ms(20.0 * x.numel(),
+                                 x.element_size() * (2 * x.numel()
+                                                     + zq_r.numel()),
+                                 "float32", peaks)
+        row = {"kernel": "spatial_norm_apply", "shape": [b, c, h, w],
+               "swish": swish, "dtype": dt, "rel_err": err,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "tol": OUT_TOL[dt], "ms": cuda_time_ms(kernel),
+               "plain_ms": cuda_time_ms(plain), "library_ms": None,
+               "bound_ms": bms, "bound_by": bound_by,
+               "card": dev["nvidia_smi"]}
+        log("kernel spatial_norm_apply", **row)
+        if not err <= OUT_TOL[dt]:
+            raise AssertionError(f"spatial_norm_apply disagrees with its "
+                                 f"plain version: {row}")
+        rows.append(row)
+    return rows
+
+
+def norm_conv_rows(dev: dict, peaks, gen) -> list:
+    """The per-call norm+conv (the chain kernel with no residual and no
+    moments) at NORM_CONV_SHAPES, stats given, against its plain version;
+    the library yardstick is cuDNN's conv alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from control_gic_tpu_torch.ops import fused_norm as FN
+    from control_gic_tpu_torch.ops import norm_conv as NC
+
+    rows = []
+    for form, h, w, cin, cout, dt in NORM_CONV_SHAPES:
+        dtype = getattr(torch, dt)
+        r = lambda *s, scale=1.0: scale * torch.randn(*s, device="cuda",
+                                                      generator=gen)
+        a = _norm_inputs(r, cin, h, w, dtype, form == "sn")
+        x, zq_r = a.pop("x"), a.pop("zq_r", None)
+        cw = r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        cb = r(cout, scale=0.1)
+        stats = NC.stats_from_moments(FN.gn_moments_reference(x), h * w)
+        mod = {k: a[k] for k in ("wy", "by", "wb", "bb") if k in a}
+        kernel = lambda: NC.norm_conv_kernel(x, cw, cb, a["gs"], a["gb"],
+                                             stats, True, zq_r, **mod)
+
+        def plain():
+            if form == "sn":
+                return NC.chain_reference(x, zq_r, a["gs"], a["gb"],
+                                          mod["wy"], mod["by"], mod["wb"],
+                                          mod["bb"], cw, cb, stats=stats,
+                                          emit_mom=False)
+            return NC.plain_chain_reference(x, a["gs"], a["gb"], cw, cb,
+                                            stats=stats, emit_mom=False)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        cwd, cbd = cw.to(dtype), cb.to(dtype)
+        lib_ms = cuda_time_ms(lambda: F.conv2d(x, cwd, cbd, padding=1))
+        nbytes = x.element_size() * (cin * h * w + cout * h * w
+                                     + 4 * h * w * (form == "sn")
+                                     + 9 * cin * cout)
+        bms, bound_by = bound_ms(2.0 * h * w * 9 * cin * cout, nbytes, dt,
+                                 peaks)
+        row = {"kernel": "norm_conv", "form": form, "shape": [1, cin, h, w],
+               "cout": cout, "dtype": dt, "rel_err": err,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "tol": OUT_TOL[dt], "ms": cuda_time_ms(kernel),
+               "plain_ms": cuda_time_ms(plain), "library_ms": lib_ms,
+               "library": "F.conv2d, conv only", "bound_ms": bms,
+               "bound_by": bound_by, "card": dev["nvidia_smi"]}
+        log("kernel norm_conv", **row)
+        if not err <= OUT_TOL[dt]:
+            raise AssertionError(f"norm_conv disagrees with its plain "
+                                 f"version: {row}")
+        rows.append(row)
+    return rows
+
+
+def switched_grad_checks(gen) -> None:
+    """Gradients through the per-call op (_NormConvFn) and the switched
+    SpatialNorm (_SpatialNormFn), kernels forward, against the same calls
+    under plain_versions(), f32."""
+    import torch
+
+    from control_gic_tpu_torch.ops import fused_norm as FN
+    from control_gic_tpu_torch.ops import norm_conv as NC
+    from control_gic_tpu_torch.ops import plain_versions
+
+    r = lambda *s, scale=1.0: scale * torch.randn(*s, device="cuda",
+                                                  generator=gen)
+
+    def check(label, inputs, fn, key, counts):
+        g_out = None
+
+        def grads():
+            nonlocal g_out
+            leaves = {n: t.detach().requires_grad_()
+                      for n, t in inputs.items()}
+            out = fn(leaves)
+            if g_out is None:
+                g_out = r(*out.shape)
+            return dict(zip(leaves, torch.autograd.grad(
+                out, list(leaves.values()), g_out)))
+
+        before = counts[key]
+        got = grads()
+        if counts[key] != before + 1:
+            raise AssertionError(f"the {label} gradient check missed its "
+                                 f"kernel")
+        with plain_versions():
+            want = grads()
+        errs = {n: rel_err(got[n], want[n]) for n in want}
+        log(f"{label} gradient", rel_errs=errs, tol=OUT_TOL["float32"])
+        if not max(errs.values()) <= OUT_TOL["float32"]:
+            raise AssertionError(f"{label} gradient disagrees: {errs}")
+
+    for form, h, w, cin, cout in NORM_CONV_GRAD_SHAPES:
+        inputs = _norm_inputs(r, cin, h, w, torch.float32, form == "sn")
+        inputs.update(cw=r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
+                      cb=r(cout, scale=0.1))
+        if form == "sn":
+            fn = lambda a: NC.spatial_norm_conv(
+                a["x"], a["zq_r"], a["gs"], a["gb"], a["wy"], a["by"],
+                a["wb"], a["bb"], a["cw"], a["cb"], use_fused=True)
+        else:
+            fn = lambda a: NC.group_norm_conv(a["x"], a["gs"], a["gb"],
+                                              a["cw"], a["cb"],
+                                              use_fused=True)
+        check(f"norm_conv {form} {[1, cin, h, w]}->{cout}", inputs, fn,
+              f"norm_conv_{form}", NC.KERNEL_LAUNCHES)
+    for b, c, h, w in APPLY_GRAD_SHAPES:
+        inputs = _norm_inputs(r, c, h, w, torch.float32)
+        check(f"spatial_norm_apply {[b, c, h, w]}", inputs,
+              lambda a: FN.spatial_norm(
+                  a["x"], a["zq_r"], a["gs"], a["gb"], a["wy"], a["by"],
+                  a["wb"], a["bb"], act_swish=True, use_fused=True),
+              "spatial_norm_apply", FN.KERNEL_LAUNCHES)
+
+
 RATIOS = [(0.1, 0.4), (0.0, 0.8), (0.3, 0.0), (0.5, 0.5),
           (1.0, 0.0), (0.0, 1.0), (0.0, 0.0)]   # the ratios of modes 0-6
 IMAGE = (256, 256)
 KODAK = (512, 768)
+COUNTERS = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dkdv",
+            "flash_attn_bwd_dq", "chain_gn", "chain_sn", "norm_conv_gn",
+            "norm_conv_sn", "gn_moments", "spatial_norm_apply")
+
+
+def launches_of(**counts) -> dict:
+    """Every launch counter, 0 unless given."""
+    assert set(counts) <= set(COUNTERS), counts
+    return {k: counts.get(k, 0) for k in COUNTERS}
+
+
 # launches per image: at 256x256 the encoder's head_fine mid and the
 # decoder's three mids attend (4096 tokens) and nothing chains; at 512x768
 # add the encoder's level-3 attentions and head_medium mid and the decoder's
 # level-3 attentions, and the chained trunks (encoder levels 0-1 in the
 # GroupNorm form, decoder levels 1-0 and norm_out in the SpatialNorm form)
-_NO_TRAINING = {"flash_attn_fwd_lse": 0, "flash_attn_bwd_dkdv": 0,
-                "flash_attn_bwd_dq": 0}
 PER_IMAGE = {
-    IMAGE: {"flash_attn_fwd": 4, **_NO_TRAINING, "chain_gn": 0,
-            "chain_sn": 0, "gn_moments": 0},
-    KODAK: {"flash_attn_fwd": 10, **_NO_TRAINING, "chain_gn": 8,
-            "chain_sn": 13, "gn_moments": 4},
+    IMAGE: launches_of(flash_attn_fwd=4),
+    KODAK: launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
+                       gn_moments=4),
 }
+# 256x256 with CONTROL_GIC_FUSED_NORM=1: each of the decoder's 49
+# SpatialNorms (3 mids x 5, the trunk's 15 blocks x 2, 3 level-3 attention
+# norms, norm_out) runs the moment pass and the apply kernel
+PER_IMAGE_FUSED_NORM = launches_of(flash_attn_fwd=4, gn_moments=49,
+                                   spatial_norm_apply=49)
 # launches per 256x256 batch-2 training step: the four attentions run as
 # FlashAttentionFn (lse forward, dk/dv and dq backward); nothing chains
-PER_TRAIN_STEP = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 4,
-                  "flash_attn_bwd_dkdv": 4, "flash_attn_bwd_dq": 4,
-                  "chain_gn": 0, "chain_sn": 0, "gn_moments": 0}
+PER_TRAIN_STEP = launches_of(flash_attn_fwd_lse=4, flash_attn_bwd_dkdv=4,
+                             flash_attn_bwd_dq=4)
 
 
 def make_image(seed: int, hw=IMAGE):
@@ -580,16 +832,19 @@ def make_image(seed: int, hw=IMAGE):
     return np.clip(0.6 * flat + ramp + noise, 0, 1).astype(np.float32)
 
 
-def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int):
+def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int,
+                    per_image=None, tag: str = ""):
     """The full-width codec through stream files: n_mode0 images in mode 0,
-    then one in each of modes 1-6. Returns the kernel launch counts of that
-    run and the images."""
+    then one in each of modes 1-6, each launching per_image (PER_IMAGE[hw]
+    by default). Returns the kernel launch counts of that run and the
+    images."""
     import numpy as np
     import torch
 
     from control_gic_tpu_torch.codec import EncodedImage
 
-    label = f"{hw[0]}x{hw[1]}"
+    label = f"{hw[0]}x{hw[1]}{tag}"
+    per_image = PER_IMAGE[hw] if per_image is None else per_image
     images = [make_image(seed, hw) for seed in range(n_mode0)]
     runs = [(images[i], RATIOS[0]) for i in range(n_mode0)]
     runs += [(images[m % n_mode0], RATIOS[m]) for m in range(1, 7)]
@@ -622,7 +877,7 @@ def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int):
         log(f"image {label}", run=i, mode=enc.mode, bpp=bpp,
             stream_bytes=enc.num_bytes, recv_only_max_diff=diff,
             rec_mean=float(rec.mean()))
-    expected = {k: v * len(runs) for k, v in PER_IMAGE[hw].items()}
+    expected = {k: v * len(runs) for k, v in per_image.items()}
     if launches != expected:
         raise AssertionError(f"{label}: kernel launches {launches} for "
                              f"{len(runs)} images, expected {expected}")
@@ -685,13 +940,17 @@ def phase_profile(dev: dict, codec, images, label: str) -> None:
         for img in images:
             codec.compress(img, *RATIOS[0])
 
-    wall_us, busy, kernels, by_name = device_profile(run)
+    log_profile(dev, label, n, *device_profile(run))
+
+
+def log_profile(dev: dict, label: str, n: int, wall_us, busy, kernels,
+                by_name) -> None:
     if busy is None:
         log(f"profile {label}", device_time="not measured (the profiler "
             "recorded no device events)", wall_ms_per_image=wall_us / n / 1e3)
         return
     shares = _shares(by_name, ("flash_fwd_kernel", "chain_kernel",
-                               "gn_moments_kernel"))
+                               "gn_moments_kernel", "apply_kernel"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     log(f"profile {label}", images=n, wall_ms_per_image=wall_us / n / 1e3,
         device_busy_ms_per_image=busy / n / 1e3,
@@ -700,6 +959,7 @@ def phase_profile(dev: dict, codec, images, label: str) -> None:
         flash_share_of_device_time=shares["flash_fwd_kernel"],
         chain_share_of_device_time=shares["chain_kernel"],
         moments_share_of_device_time=shares["gn_moments_kernel"],
+        apply_share_of_device_time=shares["apply_kernel"],
         top_kernels_ms_per_image={k: v / n / 1e3 for k, v in top},
         card=dev["nvidia_smi"])
 
@@ -781,10 +1041,13 @@ def phase_f32_parity(image) -> None:
         f"f32 recon card vs CPU differs by {rec_err} ({rec_rel} relative)"
 
 
-def kernels_vs_plain(model, image) -> dict:
+def kernels_vs_plain(model, image, per_image=None) -> dict:
     """One image's pre-VQ latent, and the decode of its indices and masks,
     through `model` with the kernels and under ops.plain_versions(); the
-    launch counts of the plain run must stay where they were."""
+    launch counts of the plain run must stay where they were, and the
+    kernel run must launch every kernel that per_image (PER_IMAGE[KODAK] by
+    default) counts. Also the VQ indices of both latents, and those of the
+    plain latent that differ from the kernels' by more than a near-tie."""
     import torch
 
     from control_gic_tpu_torch.ops import plain_versions
@@ -805,10 +1068,24 @@ def kernels_vs_plain(model, image) -> dict:
         torch.cuda.synchronize()
     if read_launches() != launched:
         raise AssertionError("a kernel launched inside plain_versions()")
-    if not all(launched[k] for k in PER_IMAGE[KODAK] if PER_IMAGE[KODAK][k]):
+    per_image = PER_IMAGE[KODAK] if per_image is None else per_image
+    if not all(launched[k] for k in per_image if per_image[k]):
         raise AssertionError(f"the kernel run missed a kernel: {launched}")
     err = lambda a, b: (a.float() - b.float()).abs().max().item()
-    return {"latent_max_abs_err": err(lat_k, lat_p),
+    # indices: a latent error delta moves the distance gap of two codes by
+    # at most 2 |delta| |c_i - c_j| <= 16 max|delta| max|c| over 4 dims
+    cb = model.codebook.float()
+    dist = lambda lat: ((lat[..., None] - cb.t()[None, :, None, None]) ** 2
+                        ).sum(1)                         # [B, H, W, N]
+    d_p = dist(lat_p.float())
+    i_k, i_p = dist(lat_k.float()).argmin(-1), d_p.argmin(-1)
+    gap = (d_p.gather(-1, i_k[..., None])
+           - d_p.gather(-1, i_p[..., None]))[..., 0]
+    near = 16 * err(lat_k, lat_p) * cb.abs().max().item() + 1e-7
+    return {"indices_differing": int((i_k != i_p).sum()),
+            "indices_differing_beyond_ties": int(((i_k != i_p)
+                                                  & (gap > near)).sum()),
+            "latent_max_abs_err": err(lat_k, lat_p),
             "latent_rel_err": err(lat_k, lat_p) / lat_p.abs().max().item(),
             "recon_max_abs_err": err(rec_k, rec_p),
             "recon_rel_err": err(rec_k, rec_p) / rec_p.float().abs().max().item(),
@@ -839,6 +1116,160 @@ def phase_kodak_f32(codec, image) -> None:
                 and f32[f"{key}_rel_err"] <= 1e-3):
             raise AssertionError(f"Kodak f32 {key}: kernels differ from the "
                                  f"plain versions: {f32}")
+
+
+# the tiled phase: a 1356x2040 PNG (the DIV2K shape class), which the CLI's
+# dataset crops to 1344x2032 (as the JAX CLI's does): 768-px tiles
+# 768x768 (2), 768x496, 576x768 (2) and 576x496
+HIGHRES = (1356, 2040)
+TILE = 768
+TILED_SETTINGS = {
+    "default": {},
+    "chain0_norm_conv1": {"CONTROL_GIC_CHAIN": "0",
+                          "CONTROL_GIC_NORM_CONV": "1"},
+    "fused_norm1": {"CONTROL_GIC_FUSED_NORM": "1"},
+}
+# launches per tile shape group (the tiles of one shape run as one batch:
+# one encode and one decode), by setting and tile shape, from the gates on
+# the full-width model's shapes:
+#  - flash: the encoder's fine-head mid, the decoder's 3 mids and, where
+#    H/8 x W/8 tokens are >= 4096 and JAX's blocks divide them, the
+#    encoder's 2 level-3 attentions and medium-head mid and the decoder's 3
+#    level-3 attentions; the 576x496 tile's fine head (17856 tokens) no
+#    256-block divides;
+#  - default: the chain where a trunk run of blocks reaches 9M elements per
+#    sample with W a multiple of 16 (the encoder's levels 0-2 at 768x768,
+#    levels 0-1 at 576x768, level 0 at 496 px wide; the decoder's levels
+#    2-0 and norm_out, 1-0, 0), the moment pass at each chain's start;
+#  - CONTROL_GIC_CHAIN=0 + CONTROL_GIC_NORM_CONV=1: each of those convs,
+#    plus the encoder fine head (2 blocks + conv_out, 192x192x256) and the
+#    decoder mids (12 convs, 9.4-18.9M elements) as per-call ops, each with
+#    its moment pass (48 calls on a 768x768 tile);
+#  - CONTROL_GIC_FUSED_NORM=1: the default's chain, and the moment pass and
+#    the apply kernel at every other SpatialNorm of the decoder.
+PER_TILE = {
+    "default": {
+        (768, 768): launches_of(flash_attn_fwd=10, chain_gn=12, chain_sn=19,
+                                gn_moments=6),
+        (768, 496): launches_of(flash_attn_fwd=4, chain_gn=4, chain_sn=7,
+                                gn_moments=2),
+        (576, 768): launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
+                                gn_moments=4),
+        (576, 496): launches_of(chain_gn=4, chain_sn=7, gn_moments=2)},
+    "chain0_norm_conv1": {
+        (768, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=17,
+                                norm_conv_sn=31, gn_moments=48),
+        (768, 496): launches_of(flash_attn_fwd=4, norm_conv_gn=4,
+                                norm_conv_sn=7, gn_moments=11),
+        (576, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=8,
+                                norm_conv_sn=25, gn_moments=33),
+        (576, 496): launches_of(norm_conv_gn=4, norm_conv_sn=7,
+                                gn_moments=11)},
+    "fused_norm1": {
+        (768, 768): launches_of(flash_attn_fwd=10, chain_gn=12, chain_sn=19,
+                                gn_moments=36, spatial_norm_apply=30),
+        (768, 496): launches_of(flash_attn_fwd=4, chain_gn=4, chain_sn=7,
+                                gn_moments=44, spatial_norm_apply=42),
+        (576, 768): launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
+                                gn_moments=40, spatial_norm_apply=36),
+        (576, 496): launches_of(chain_gn=4, chain_sn=7, gn_moments=38,
+                                spatial_norm_apply=36)},
+}
+ALL_SWITCHES = {"CONTROL_GIC_CHAIN": "0", "CONTROL_GIC_NORM_CONV": "1",
+                "CONTROL_GIC_FUSED_NORM": "1"}
+
+
+def tiled_expected(setting: str, h: int, w: int) -> dict:
+    """The launches of one h x w image (already /16) through the tiled
+    codec under a setting: PER_TILE summed over its tile grid's shapes."""
+    from control_gic_tpu_torch.parallel.tiling import tile_grid
+    total = launches_of()
+    for shape in {t[2:] for t in tile_grid(h, w, TILE)}:
+        for k, v in PER_TILE[setting][shape].items():
+            total[k] += v
+    return total
+
+
+def phase_tiled(dev: dict, codec, workdir: str) -> dict:
+    """Phase 10: the high-res CLI on one 1356x2040 PNG under each setting of
+    TILED_SETTINGS, after an untimed warm-up run; bpp, PSNR, ms per image
+    and exact launches; a profile of the first two settings. Returns each
+    setting's launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from control_gic_tpu_torch.cli import infer_highres
+
+    src = os.path.join(workdir, "highres")
+    os.makedirs(src)
+    h, w = HIGHRES
+    img = make_image(500, (-(-h // 32) * 32, -(-w // 32) * 32))[:h, :w]
+    Image.fromarray((img * 255).astype(np.uint8)).save(
+        os.path.join(src, "div2k_shape.png"))
+    ch, cw = h // 16 * 16, w // 16 * 16
+    run = lambda out: infer_highres.main(
+        ["-i", src, "-o", os.path.join(workdir, out), "--tile", str(TILE),
+         "--ratios", "0.1", "0.4"], codec=codec)
+    run("hr_warmup")
+    torch.cuda.synchronize()
+    launches = {}
+    for setting, env in TILED_SETTINGS.items():
+        with switches(**env):
+            reset_launches()
+            t0 = time.perf_counter()
+            (_, bpp, psnr, _), = run(f"hr_{setting}")
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches[setting] = read_launches()
+            expected = tiled_expected(setting, ch, cw)
+            log(f"tiled {setting}", image=[h, w], cropped_to=[ch, cw],
+                tile=TILE, switches=env, bpp=bpp, psnr_db=psnr,
+                ms_per_image=ms, launches=launches[setting],
+                card=dev["nvidia_smi"])
+            if launches[setting] != expected:
+                raise AssertionError(f"tiled {setting}: launches "
+                                     f"{launches[setting]}, expected "
+                                     f"{expected}")
+            if not (bpp > 0 and np.isfinite(psnr)):
+                raise AssertionError(f"tiled {setting}: bpp {bpp}, PSNR "
+                                     f"{psnr}")
+            if setting != "fused_norm1":
+                log_profile(dev, f"tiled {setting}", 1,
+                            *device_profile(lambda: run("hr_prof")))
+    return launches
+
+
+def phase_tile_f32(image) -> None:
+    """Phase 11: one 768x768 tile through the f32 model (TF32 off) with all
+    three switches set, kernels against plain_versions(): recon and latent
+    within 1e-3, the VQ indices equal except at near-ties."""
+    import torch
+
+    from control_gic_tpu_torch.models import CGIC, CGICConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = CGIC(CGICConfig(dtype="float32"),
+                 generator=torch.Generator().manual_seed(1)).cuda().eval()
+    with switches(**ALL_SWITCHES):
+        got = kernels_vs_plain(model, image, launches_of(
+            flash_attn_fwd=1, norm_conv_gn=1, norm_conv_sn=1, gn_moments=1,
+            spatial_norm_apply=1))
+    del model
+    torch.cuda.empty_cache()
+    log("tile f32 kernels vs plain", tile=[TILE, TILE],
+        switches=ALL_SWITCHES, tol=1e-3, **got,
+        seconds=time.perf_counter() - t0)
+    for key in ("latent", "recon"):
+        if not (got[f"{key}_max_abs_err"] <= 1e-3
+                and got[f"{key}_rel_err"] <= 1e-3):
+            raise AssertionError(f"tile f32 {key}: kernels differ from the "
+                                 f"plain versions: {got}")
+    if got["indices_differing_beyond_ties"]:
+        raise AssertionError(f"tile f32: VQ indices differ beyond near-ties: "
+                             f"{got}")
 
 
 TRAIN_BATCH = 2
@@ -1104,15 +1535,22 @@ def main() -> None:
         phase_profile(dev, codec, images[:2], "256x256")
         launches, kodak = phase_main_path(dev, codec, workdir, KODAK, 2)
         phase_profile(dev, codec, kodak[:1], "512x768")
+        with switches(CONTROL_GIC_FUSED_NORM="1"):
+            phase_main_path(dev, codec, workdir, IMAGE, 4,
+                            PER_IMAGE_FUSED_NORM, " fused_norm1")
+            phase_profile(dev, codec, images[:2], "256x256 fused_norm1")
+        tiled = phase_tiled(dev, codec, workdir)
     phase_f32_parity(make_image(0))
     phase_kodak_f32(codec, kodak[0])
     del codec
+    phase_tile_f32(make_image(7, (TILE, TILE)))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         train_launches = phase_train(dev, workdir)
 
     # each kernel's row at its main path's shape, and its launches there:
     # the inference kernels on the Kodak round trip, the training kernels
-    # in the 3 f32 training steps
+    # in the 3 f32 training steps, the apply kernel and the per-call op on
+    # the tiled codec under their switches
     train_row = lambda name: next(r for r in rows if r["kernel"] == name
                                   and r["shape"] == [2, 4096, 4096, 512]
                                   and r["dtype"] == "float32")
@@ -1124,13 +1562,20 @@ def main() -> None:
         "flash_attn_bwd_dq": train_row("flash_attn_bwd_dq"),
         "norm_conv_chain": next(r for r in rows if r["kernel"] == "norm_conv_chain"),
         "gn_moments": next(r for r in rows if r["kernel"] == "gn_moments"),
+        "spatial_norm_apply": next(r for r in rows
+                                   if r["kernel"] == "spatial_norm_apply"),
+        "norm_conv": next(r for r in rows if r["kernel"] == "norm_conv"),
     }
+    nc = tiled["chain0_norm_conv1"]
     main_launches = {"flash_attn_fwd": launches["flash_attn_fwd"],
                      "flash_attn_fwd_lse": train_launches["flash_attn_fwd_lse"],
                      "flash_attn_bwd_dkdv": train_launches["flash_attn_bwd_dkdv"],
                      "flash_attn_bwd_dq": train_launches["flash_attn_bwd_dq"],
                      "norm_conv_chain": launches["chain_gn"] + launches["chain_sn"],
-                     "gn_moments": launches["gn_moments"]}
+                     "gn_moments": launches["gn_moments"],
+                     "spatial_norm_apply":
+                         tiled["fused_norm1"]["spatial_norm_apply"],
+                     "norm_conv": nc["norm_conv_gn"] + nc["norm_conv_sn"]}
     kernels = [dict(name=name, **KERNELS[name],
                     launches=main_launches[name],
                     max_abs_err=main_rows[name]["max_abs_err"],

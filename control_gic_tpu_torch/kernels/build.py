@@ -49,6 +49,10 @@ SIGNATURES = {
     "gn_moments": {
         "cgic_gn_moments": (_I, [_P, _P, _I, _I, _L, _I, _P]),
     },
+    "spatial_norm_apply": {
+        "cgic_spatial_norm_apply": (_I, [_P] * 11 + [_I, _I, _L, _I, _I,
+                                                     _P]),
+    },
 }
 
 _LOCK = threading.Lock()

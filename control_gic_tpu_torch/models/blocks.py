@@ -1,6 +1,6 @@
 """VQGAN building blocks as nn.Modules, NCHW (port of
 control_gic_tpu/models/blocks.py: the unfused branch, and the ResnetBlock's
-chained branch through ops/norm_conv.py).
+chained and per-call fused branches through ops/norm_conv.py).
 
 Parameters are kept in f32 and cast to the block's compute dtype at use, as
 flax does. Module and parameter names follow the reference checkpoint's
@@ -8,9 +8,14 @@ state_dict keys (norm1.weight, norm1.norm_layer.weight, conv_y, q, k, v,
 proj_out, nin_shortcut, downsample.conv, upsample.conv), weights OIHW.
 
   - GroupNorm32: 32 groups, eps 1e-6, computed in f32;
-  - SpatialNorm: GroupNorm(f) * conv_y(zq) + conv_b(zq), zq nearest-resized;
+  - SpatialNorm: GroupNorm(f) * conv_y(zq) + conv_b(zq), zq nearest-resized,
+    through ops.fused_norm.spatial_norm (the apply kernel under
+    CONTROL_GIC_FUSED_NORM);
   - ResnetBlock: norm -> swish -> 3x3 conv, twice, 1x1 nin_shortcut on a
-    channel change; SpatialNorm norms when zq_cond;
+    channel change; SpatialNorm norms when zq_cond. It chains where the
+    caller threads moments and chain_admissible holds, else runs each
+    norm+conv pair as one per-call op where norm_conv_worthwhile holds
+    (CONTROL_GIC_NORM_CONV), else unfused;
   - AttnBlock: norm -> 1x1 q/k/v -> single-head attention over the tokens
     flattened row-major over (H, W) -> 1x1 proj_out, residual;
   - Downsample: pad (0,1,0,1), 3x3 conv stride 2;
@@ -26,9 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from ..ops.fused_norm import group_norm_reference, spatial_norm_reference
-from ..ops.norm_conv import (chain_admissible, group_norm_conv_mom,
-                             spatial_norm_conv_mom, stats_from_moments)
+from ..ops.fused_norm import group_norm_reference, spatial_norm
+from ..ops.norm_conv import (chain_admissible, group_norm_conv,
+                             group_norm_conv_mom, norm_conv_worthwhile,
+                             spatial_norm_conv, spatial_norm_conv_mom,
+                             stats_from_moments)
 from ..ops.resample import nearest_resize, upsample2_conv3x3
 
 
@@ -92,11 +99,15 @@ class SpatialNorm(nn.Module):
     def forward(self, f: torch.Tensor, zq: torch.Tensor,
                 act: Optional[str] = None) -> torch.Tensor:
         zq_r = nearest_resize(zq, f.shape[2], f.shape[3])
-        return spatial_norm_reference(
-            f.to(self.dtype), zq_r, self.norm_layer.weight,
-            self.norm_layer.bias, self.conv_y.weight[:, :, 0, 0],
-            self.conv_y.bias, self.conv_b.weight[:, :, 0, 0],
-            self.conv_b.bias, act_swish=(act == "swish"))
+        return spatial_norm(f.to(self.dtype), zq_r, *self.params(),
+                            act_swish=(act == "swish"))
+
+    def params(self):
+        """(gs, gb, wy, by, wb, bb): the norm's scale and bias and the two
+        1x1 convs as [C, Z] matrices with their biases."""
+        return (self.norm_layer.weight, self.norm_layer.bias,
+                self.conv_y.weight[:, :, 0, 0], self.conv_y.bias,
+                self.conv_b.weight[:, :, 0, 0], self.conv_b.bias)
 
 
 def make_norm(channels: int, zq_channels: Optional[int],
@@ -129,6 +140,7 @@ class ResnetBlock(nn.Module):
         the previous chained block emitted (norm1's stats pass is then
         skipped); emit_mom=True returns (out, moments of out). The caller
         decides chain membership with chain_admissible."""
+        b, _, hh, ww = x.shape
         out_ch = self.conv1.weight.shape[0]
         if (emit_mom or mom_in is not None) and chain_admissible(x.shape,
                                                                  out_ch):
@@ -136,33 +148,39 @@ class ResnetBlock(nn.Module):
         assert mom_in is None and not emit_mom, \
             "mom_in/emit_mom passed to a block that cannot chain " \
             "(the caller checks chain_admissible first)"
-        h = self.conv1(self.norm1(x, zq, act="swish"))
-        h = self.conv2(self.norm2(h, zq, act="swish"))
+        if (norm_conv_worthwhile(x.shape, out_ch)
+                and norm_conv_worthwhile((b, out_ch, hh, ww), out_ch)):
+            # JAX's fuse / fuse_plain branches: each pair as one call
+            op = self._pair_op(x, zq, spatial_norm_conv, group_norm_conv)
+            h = op(op(x.to(self.conv1.dtype), self.norm1, self.conv1),
+                   self.norm2, self.conv2)
+        else:
+            h = self.conv1(self.norm1(x, zq, act="swish"))
+            h = self.conv2(self.norm2(h, zq, act="swish"))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
+
+    def _pair_op(self, x, zq, sn_op, gn_op):
+        """op(h, norm, conv, **kw): a norm+conv pair of this block through
+        sn_op (SpatialNorm form, zq resized to x and cast to the compute
+        dtype) or gn_op (GroupNorm form)."""
+        if isinstance(self.norm1, SpatialNorm):
+            zq_r = nearest_resize(zq, x.shape[2], x.shape[3]).to(
+                self.conv1.dtype)
+            return lambda h, norm, conv, **kw: sn_op(
+                h, zq_r, *norm.params(), conv.weight, conv.bias, **kw)
+        return lambda h, norm, conv, **kw: gn_op(
+            h, norm.weight, norm.bias, conv.weight, conv.bias, **kw)
 
     def _chained(self, x, zq, mom_in, emit_mom):
         """Both norm+conv pairs as chain calls (JAX ResnetBlock's chained
         branch): conv1 always emits its moments, which give conv2's stats;
         conv2 adds the residual."""
-        dt = self.conv1.dtype
         hw = x.shape[2] * x.shape[3]
-        xd = x.to(dt)
-        if isinstance(self.norm1, SpatialNorm):
-            zq_r = nearest_resize(zq, x.shape[2], x.shape[3]).to(dt)
-
-            def conv_mom(h, norm, conv, **kw):
-                return spatial_norm_conv_mom(
-                    h, zq_r, norm.norm_layer.weight, norm.norm_layer.bias,
-                    norm.conv_y.weight[:, :, 0, 0], norm.conv_y.bias,
-                    norm.conv_b.weight[:, :, 0, 0], norm.conv_b.bias,
-                    conv.weight, conv.bias, **kw)
-        else:
-            def conv_mom(h, norm, conv, **kw):
-                return group_norm_conv_mom(h, norm.weight, norm.bias,
-                                           conv.weight, conv.bias, **kw)
-
+        xd = x.to(self.conv1.dtype)
+        conv_mom = self._pair_op(x, zq, spatial_norm_conv_mom,
+                                 group_norm_conv_mom)
         stats1 = stats_from_moments(mom_in, hw) if mom_in is not None else None
         h, mom1 = conv_mom(xd, self.norm1, self.conv1, stats=stats1,
                            emit_mom=True)

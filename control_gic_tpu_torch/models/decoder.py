@@ -13,7 +13,8 @@ control_gic_tpu/models/decoder.py).
 Trunk blocks at levels without attention chain (SpatialNorm form, see
 encoder.chain_step); mask injection, attention and Upsample end a chain. At
 level 0 the last block's moments feed norm_out + conv_out, which then run as
-one chain call with Cout = out_ch.
+one chain call with Cout = out_ch; where no moments come, they run as one
+per-call norm+conv if `norm_conv_worthwhile` says so, unfused otherwise.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.norm_conv import (admissible, spatial_norm_conv_mom,
+from ..ops.norm_conv import (admissible, norm_conv_worthwhile,
+                             spatial_norm_conv, spatial_norm_conv_mom,
                              stats_from_moments)
 from ..ops.resample import avg_pool, nearest_resize, upsample_nearest
 from .blocks import AttnBlock, Conv2d, ResnetBlock, SpatialNorm, Upsample
@@ -110,15 +112,18 @@ class Decoder(nn.Module):
             if i_level != 0:
                 h = level.upsample(h)
                 mom = None
+        zq_r = lambda: nearest_resize(zq, h.shape[2], h.shape[3]).to(
+            self.dtype)
+        conv = self.conv_out
         if mom is not None:
             # norm_out + conv_out as one chain call, stats from the moments
-            zq_r = nearest_resize(zq, h.shape[2], h.shape[3]).to(self.dtype)
-            n = self.norm_out
             return spatial_norm_conv_mom(
-                h.to(self.dtype), zq_r, n.norm_layer.weight,
-                n.norm_layer.bias, n.conv_y.weight[:, :, 0, 0], n.conv_y.bias,
-                n.conv_b.weight[:, :, 0, 0], n.conv_b.bias,
-                self.conv_out.weight, self.conv_out.bias,
+                h.to(self.dtype), zq_r(), *self.norm_out.params(),
+                conv.weight, conv.bias,
                 stats=stats_from_moments(mom, h.shape[2] * h.shape[3]),
                 emit_mom=False)
-        return self.conv_out(self.norm_out(h, zq, act="swish"))
+        if norm_conv_worthwhile(h.shape, out_ch):
+            return spatial_norm_conv(h.to(self.dtype), zq_r(),
+                                     *self.norm_out.params(), conv.weight,
+                                     conv.bias)
+        return conv(self.norm_out(h, zq, act="swish"))

@@ -10,7 +10,9 @@ config `resolution`, not the input's size.
 
 Trunk blocks at levels without attention chain (GroupNorm form, see
 `chain_step`): each block's epilogue moments feed the next block's norm.
-Attention and Downsample end a chain. The heads stay unfused.
+Attention and Downsample end a chain. A head's norm_out + conv_out run as
+one per-call norm+conv where `norm_conv_worthwhile` says so (JAX
+`_MidHead`), unfused otherwise.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.norm_conv import chain_admissible
+from ..ops.norm_conv import (chain_admissible, group_norm_conv,
+                             norm_conv_worthwhile)
 from .blocks import (AttnBlock, Conv2d, Downsample, GroupNorm32, ResnetBlock,
                      swish)
 
@@ -129,4 +132,14 @@ class Encoder(nn.Module):
                   taps[self.num_res - 2]),
                  (self.mid_coarse, self.norm_out_coarse, self.conv_out_coarse,
                   h))
-        return tuple(conv(swish(norm(mid(t)))) for mid, norm, conv, t in heads)
+        return tuple(_head(*head) for head in heads)
+
+
+def _head(mid: Mid, norm: GroupNorm32, conv: Conv2d,
+          t: torch.Tensor) -> torch.Tensor:
+    """mid -> GroupNorm -> swish -> conv_out (JAX `_MidHead`)."""
+    h = mid(t)
+    if norm_conv_worthwhile(h.shape, conv.weight.shape[0]):
+        return group_norm_conv(h.to(conv.dtype), norm.weight, norm.bias,
+                               conv.weight, conv.bias)
+    return conv(swish(norm(h)))

@@ -1,21 +1,34 @@
-"""GroupNorm and SpatialNorm formulas, and the GroupNorm moment pass (port
-of control_gic_tpu/ops/fused_norm.py; its apply kernel is a later slice).
+"""GroupNorm and SpatialNorm formulas, the GroupNorm moment pass and the
+SpatialNorm apply kernel (port of control_gic_tpu/ops/fused_norm.py).
 
 Statistics are taken in f32 as E[x^2] - E[x]^2 clamped at 0, with eps inside
 the rsqrt: flax's nn.GroupNorm numerics, which F.group_norm does not share.
 SpatialNorm (MoVQ) is GroupNorm(f) * conv_y(zq) + conv_b(zq) with the two
 1x1 convs from the 4-channel zq written as a Z-term broadcast sum, and its
-pointwise math runs in the activation dtype. Tensors are NCHW.
+pointwise math runs in the activation dtype (`spatial_norm_reference`, the
+default path). Tensors are NCHW.
 
 The moment pass (JAX `_gn_stats_pallas`) is the per-channel sum and sum of
 squares over H*W, [B, 2, C] f32, then a group fold to per-channel (mean,
 rstd). `gn_moments` launches the CUDA kernel kernels/gn_moments.cu for CUDA
 tensors, inside `_GnMomentsFn` where x needs a gradient, and runs
 `gn_moments_reference` for CPU tensors.
+
+`spatial_norm` is JAX's dispatch, read at call time, with the H100 in the
+TPU's place:
+  - CONTROL_GIC_FUSED_NORM set: the moment pass, then the apply kernel
+    kernels/spatial_norm_apply.cu (JAX `_fused_forward`), whose plain
+    version is `spatial_norm_kernel_act` (f32, dot-form modulation);
+  - CONTROL_GIC_STATS_KERNEL set: the moment pass, then that torch apply
+    (JAX `_stats_only_forward`);
+  - otherwise, or where `_row_block` finds no block, `spatial_norm_reference`.
+Both switched paths run inside `_SpatialNormFn` (JAX `_make_fused`) where a
+gradient is needed; its backward differentiates `spatial_norm_reference`.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import torch
@@ -25,9 +38,12 @@ from . import use_kernel
 GROUPS = 32
 EPS = 1e-6
 
-# Launches of the CUDA moment kernel in this process (gn_moments_kernel adds
-# one per launch). A caller resets it to 0 and reads it back.
-KERNEL_LAUNCHES = {"gn_moments": 0}
+# Launches of the CUDA kernels in this process: the moment pass and the
+# SpatialNorm apply (each wrapper adds one per launch). A caller resets them
+# to 0 and reads them back.
+KERNEL_LAUNCHES = {"gn_moments": 0, "spatial_norm_apply": 0}
+
+Stats = Tuple[torch.Tensor, torch.Tensor]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,9 +51,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _row_block(hw: int, c: int, target_bytes: int = 1 << 21) -> int:
     """Largest divisor of hw, a multiple of 8 or hw itself, whose [rb, C] f32
     block fits target_bytes; 0 when there is none. The JAX package's row
-    block, sized for TPU VMEM: the port keeps it only as part of the chain's
-    engagement rule (ops/norm_conv.admissible), so that it engages where the
-    JAX package does."""
+    block, sized for TPU VMEM: the port keeps it only as part of the
+    engagement rules (here and in ops/norm_conv.admissible), so that the
+    kernels engage where the JAX package's do."""
     cap = max(1, target_bytes // (4 * c))
     if hw <= cap:
         return hw
@@ -187,3 +203,183 @@ def _chain_sum(terms):
     for t in terms[1:]:
         acc = acc + t
     return acc
+
+
+# ------------------------------------------------- the kernels' numerics
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    return t[..., None, None]
+
+
+def _normalize(x: torch.Tensor, gs: torch.Tensor, gb: torch.Tensor,
+               stats: Stats) -> torch.Tensor:
+    mean_c, rstd_c = stats[0].float(), stats[1].float()
+    return ((x.float() - _col(mean_c)) * _col(rstd_c * gs.float())
+            + _col(gb.float()))
+
+
+def group_norm_kernel_act(x: torch.Tensor, gs: torch.Tensor, gb: torch.Tensor,
+                          act_swish: bool, stats: Stats) -> torch.Tensor:
+    """GroupNorm(+swish) in the kernels' numerics: f32 normalize with the
+    given per-channel stats, cast to x's dtype."""
+    out = _normalize(x, gs, gb, stats)
+    if act_swish:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
+def spatial_norm_kernel_act(x: torch.Tensor, zq_r: torch.Tensor,
+                            gs: torch.Tensor, gb: torch.Tensor,
+                            wy: torch.Tensor, by: torch.Tensor,
+                            wb: torch.Tensor, bb: torch.Tensor,
+                            act_swish: bool, stats: Stats) -> torch.Tensor:
+    """SpatialNorm(+swish) in the kernels' numerics: the f32 dot-form
+    modulation (zq @ wy + by), not the broadcast form of
+    spatial_norm_reference. The plain version of the apply kernel, and the
+    activation of the chain's. zq_r: [B, Z, H, W]; wy, wb: [C, Z]."""
+    out = _normalize(x, gs, gb, stats)
+    zf = zq_r.float().permute(0, 2, 3, 1)                  # [B, H, W, Z]
+    y = (zf @ wy.float().t() + by.float()).permute(0, 3, 1, 2)
+    bm = (zf @ wb.float().t() + bb.float()).permute(0, 3, 1, 2)
+    out = out * y + bm
+    if act_swish:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------ the apply kernel
+
+def spatial_norm_apply_kernel(f: torch.Tensor, zq_r: torch.Tensor,
+                              gs: torch.Tensor, gb: torch.Tensor,
+                              wy: torch.Tensor, by: torch.Tensor,
+                              wb: torch.Tensor, bb: torch.Tensor,
+                              stats: Stats, act_swish: bool) -> torch.Tensor:
+    """Launch the CUDA SpatialNorm apply kernel with the given per-channel
+    stats (mean_c, rstd_c) [B, C]. f: [B, C, H, W] f32 or bf16; zq_r:
+    [B, 4, H, W] in f's dtype; wy, wb: [C, 4]. CUDA tensors only: anything
+    the kernel does not take raises, and a failed build or launch raises."""
+    if not f.is_cuda:
+        raise ValueError("spatial_norm_apply_kernel launches a CUDA kernel and "
+                         "takes CUDA tensors only; use spatial_norm() for CPU "
+                         "tensors")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (f, zq_r, gs, gb, wy, by, wb, bb, *stats)):
+        raise RuntimeError("spatial_norm_apply_kernel records no gradient; "
+                           "under grad call spatial_norm()")
+    if f.dtype not in _DTYPE_CODE:
+        raise TypeError(f"spatial_norm_apply_kernel takes float32 or bfloat16,"
+                        f" got {f.dtype}")
+    if f.dim() != 4 or f.numel() == 0:
+        raise ValueError(f"expected a non-empty [B, C, H, W] tensor, got "
+                         f"{tuple(f.shape)}")
+    b, c, h, w = f.shape
+    if tuple(zq_r.shape) != (b, 4, h, w) or zq_r.dtype != f.dtype:
+        raise ValueError(f"zq_r: expected [{b}, 4, {h}, {w}] {f.dtype}, got "
+                         f"{tuple(zq_r.shape)} {zq_r.dtype}")
+    for t, name in ((f, "f"), (zq_r, "zq_r")):
+        if t.device != f.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: needs a contiguous, 16-byte aligned "
+                             f"tensor on {f.device}")
+    if b > 65535:
+        raise ValueError(f"batch {b} is above the kernel's grid limit 65535")
+    dev = f.device
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
+    # every tensor whose pointer the kernel gets stays referenced until the
+    # launch is enqueued
+    params = [f32(stats[0]), f32(stats[1]), f32(gs), f32(gb), f32(wy.t()),
+              f32(by), f32(wb.t()), f32(bb)]
+    shapes = [(b, c), (b, c), (c,), (c,), (4, c), (c,), (4, c), (c,)]
+    for t, shape in zip(params, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"a norm parameter or stat has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    from ..kernels import build
+    lib = build.load("spatial_norm_apply")
+    out = torch.empty_like(f)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cgic_spatial_norm_apply(
+            ptr(f), ptr(zq_r), *map(ptr, params), ptr(out), ctypes.c_int(b),
+            ctypes.c_int(c), ctypes.c_longlong(h * w),
+            ctypes.c_int(_DTYPE_CODE[f.dtype]), ctypes.c_int(int(act_swish)),
+            ctypes.c_void_p(stream))
+    build.check(lib, rc, "spatial_norm_apply")
+    KERNEL_LAUNCHES["spatial_norm_apply"] += 1
+    return out
+
+
+def _fused_forward(f, zq_r, gs, gb, wy, by, wb, bb, act_swish: bool,
+                   stats_only: bool) -> torch.Tensor:
+    """The moment pass and its fold, then the apply: the kernel for a CUDA
+    tensor (JAX `_fused_forward`), or with stats_only and on the CPU its
+    plain version (JAX `_stats_only_forward`)."""
+    stats = gn_stats_from_moments(gn_moments(f), f.shape[2] * f.shape[3])
+    if use_kernel(f) and not stats_only:
+        return spatial_norm_apply_kernel(f, zq_r, gs, gb, wy, by, wb, bb,
+                                         stats, act_swish)
+    return spatial_norm_kernel_act(f, zq_r, gs, gb, wy, by, wb, bb,
+                                   act_swish, stats)
+
+
+class _SpatialNormFn(torch.autograd.Function):
+    """The switched SpatialNorm with a gradient (JAX `_make_fused`): the
+    forward is `_fused_forward`; the backward reruns spatial_norm_reference
+    on the saved inputs under autograd (the stats recomputed from f) and
+    differentiates it. Inputs: act_swish, stats_only, then f, zq_r, gs, gb,
+    wy, by, wb, bb."""
+
+    @staticmethod
+    def forward(ctx, act_swish, stats_only, f, zq_r, gs, gb, wy, by, wb, bb):
+        ctx.act_swish = act_swish
+        ctx.save_for_backward(f, zq_r, gs, gb, wy, by, wb, bb)
+        return _fused_forward(f, zq_r, gs, gb, wy, by, wb, bb, act_swish,
+                              stats_only)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = spatial_norm_reference(*leaves, act_swish=ctx.act_swish)
+        wanted = [t for t, n in zip(leaves, need) if n]
+        got = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in need)
+
+
+# ---------------------------------------------------------- the dispatch
+
+def fused_norms_enabled() -> bool:
+    """JAX `fused_norms_enabled`: CONTROL_GIC_FUSED_NORM set to any
+    non-empty value, read at call time. Off by default: in JAX it is opt-in
+    on the TPU, and the port keeps that rule on the H100."""
+    return bool(os.environ.get("CONTROL_GIC_FUSED_NORM"))
+
+
+def stats_kernel_enabled() -> bool:
+    """JAX `stats_kernel_enabled`: CONTROL_GIC_STATS_KERNEL set to any
+    non-empty value, read at call time; off by default."""
+    return bool(os.environ.get("CONTROL_GIC_STATS_KERNEL"))
+
+
+def spatial_norm(f: torch.Tensor, zq_r: torch.Tensor, gn_scale: torch.Tensor,
+                 gn_bias: torch.Tensor, wy: torch.Tensor, by: torch.Tensor,
+                 wb: torch.Tensor, bb: torch.Tensor, act_swish: bool = False,
+                 use_fused=None) -> torch.Tensor:
+    """SpatialNorm (+ optional swish), JAX `spatial_norm`: the apply kernel
+    under CONTROL_GIC_FUSED_NORM (or use_fused=True), the moment pass with a
+    torch apply under CONTROL_GIC_STATS_KERNEL, spatial_norm_reference
+    otherwise; both switches need a `_row_block` for f's shape. f:
+    [B, C, H, W]; zq_r: [B, Z, H, W], cast to f's dtype on the switched
+    paths; wy, wb: [C, Z]."""
+    admissible = _row_block(f.shape[2] * f.shape[3], f.shape[1]) > 0
+    if use_fused is None:
+        use_fused = fused_norms_enabled() and admissible
+    if not (use_fused or (stats_kernel_enabled() and admissible)):
+        return spatial_norm_reference(f, zq_r, gn_scale, gn_bias, wy, by, wb,
+                                      bb, act_swish)
+    args = (f, zq_r.to(f.dtype), gn_scale, gn_bias, wy, by, wb, bb)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SpatialNormFn.apply(act_swish, not use_fused, *args)
+    return _fused_forward(*args, act_swish, not use_fused)

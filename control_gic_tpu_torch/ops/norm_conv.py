@@ -1,48 +1,62 @@
-"""The chained norm+conv building block of the ResnetBlocks, NCHW (port of
-the chained path of control_gic_tpu/ops/norm_conv.py).
+"""The norm+conv building blocks of the ResnetBlocks, NCHW (port of
+control_gic_tpu/ops/norm_conv.py).
 
-One call computes GroupNorm from given or freshly computed per-channel stats,
-optionally the SpatialNorm modulation by the 4-channel zq (f32 dot form),
-swish, a 3x3 SAME conv, the bias and optionally a residual, rounded to x's
-dtype, and optionally the per-channel (sum, sumsq) moments [B, 2, Cout] f32
-of that rounded output, which `stats_from_moments` folds into the next
-norm's stats. That is the stats-in-epilogue chain: each block's conv2 hands
-its moments to the next block's conv1, which skips its own stats pass.
+One kernel call computes GroupNorm from given per-channel stats, optionally
+the SpatialNorm modulation by the 4-channel zq (f32 dot form), swish, a 3x3
+SAME conv, the bias and optionally a residual, rounded to x's dtype, and
+optionally the per-channel (sum, sumsq) moments [B, 2, Cout] f32 of that
+rounded output, which `stats_from_moments` folds into the next norm's stats.
 
-  - `spatial_norm_conv_mom` / `group_norm_conv_mom`: the dispatch. Stats
-    come from `gn_moments` when none are given; then the CUDA kernel
-    kernels/norm_conv_chain.cu for CUDA tensors, or the plain versions
-    `chain_reference` / `plain_chain_reference` for CPU tensors (and inside
-    ops.plain_versions()). Where a gradient is needed the kernel runs inside
-    `_ChainFn` (JAX `_chain_custom`), whose backward recomputes through the
-    plain version and differentiates that.
-  - `chain_admissible`: where the model takes the chained path, the JAX
-    package's rule: both convs shape-admissible and at least CHAIN_MIN_ELEMS
-    elements per sample.
+  - The chain (JAX `_kernel_chain`): `spatial_norm_conv_mom` /
+    `group_norm_conv_mom`. Stats come from `gn_moments` when none are given;
+    then the CUDA kernel kernels/norm_conv_chain.cu (`chain_kernel`) for
+    CUDA tensors, or the plain versions `chain_reference` /
+    `plain_chain_reference` for CPU tensors (and inside
+    ops.plain_versions()). Each chained block's conv2 hands its moments to
+    the next block's conv1, which skips its own stats pass. Where a gradient
+    is needed the kernel runs inside `_ChainFn` (JAX `_chain_custom`), whose
+    backward recomputes through the plain version and differentiates that.
+  - The per-call op (JAX `_kernel`): `spatial_norm_conv` /
+    `group_norm_conv`, stats always from the moment pass, no residual, no
+    moments. It is the same kernel in that configuration
+    (`norm_conv_kernel`, counted apart from the chain). Its gradient
+    (`_NormConvFn`, JAX `_make_norm_conv`) differentiates
+    `norm_conv_reference` / `group_norm_conv_reference`, which recompute
+    the stats from x, so the gradient flows through the stats.
+  - The gates, JAX's rules read at call time with the H100 in the TPU's
+    place: `chain_admissible` (CONTROL_GIC_CHAIN, on by default) and
+    `norm_conv_worthwhile` (CONTROL_GIC_NORM_CONV, off by default), both
+    behind the element gate `_fuse_min_elems` and `admissible`.
 
 Weights are the port's: conv weights OIHW [Cout, Cin, 3, 3], the SpatialNorm
 1x1 convs as [C, Z] matrices, all f32 parameters.
 """
 from __future__ import annotations
 
+import contextvars
 import ctypes
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import use_kernel
-from .fused_norm import _row_block, gn_moments, gn_stats_from_moments
+from .fused_norm import (_col, _row_block, gn_moments, gn_stats_from_moments,
+                         group_norm_kernel_act, group_norm_reference,
+                         spatial_norm_kernel_act, spatial_norm_reference)
 
 # The JAX package's element gate (_fuse_min_elems), tuned on a TPU and kept
-# as the port's engagement rule so that the port chains where JAX does; it
-# has not been re-derived on the H100. Tests set it to 0, as JAX's
-# CONTROL_GIC_CHAIN=interpret bypasses its gate.
+# as the port's engagement rule so that the port fuses where JAX does; it
+# has not been re-derived on the H100. CONTROL_GIC_NORM_CONV_MIN_ELEMS moves
+# it, as in JAX. Tests set it to 0, as JAX's interpret switches bypass its
+# gate.
 CHAIN_MIN_ELEMS = 9_000_000
 
-# Launches of the CUDA chain kernel in this process, by norm form. A caller
-# resets them to 0 and reads them back.
-KERNEL_LAUNCHES = {"chain_gn": 0, "chain_sn": 0}
+# Launches of the CUDA kernel in this process, by use and norm form: the
+# chain, and the per-call op. A caller resets them to 0 and reads them back.
+KERNEL_LAUNCHES = {"chain_gn": 0, "chain_sn": 0, "norm_conv_gn": 0,
+                   "norm_conv_sn": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 Stats = Tuple[torch.Tensor, torch.Tensor]
@@ -55,45 +69,6 @@ def stats_from_moments(mom: torch.Tensor, hw: int) -> Stats:
 
 
 # ---------------------------------------------------------------- plain path
-
-def _col(t: torch.Tensor) -> torch.Tensor:
-    return t[..., None, None]
-
-
-def _normalize(x: torch.Tensor, gs: torch.Tensor, gb: torch.Tensor,
-               stats: Stats) -> torch.Tensor:
-    mean_c, rstd_c = stats[0].float(), stats[1].float()
-    return ((x.float() - _col(mean_c)) * _col(rstd_c * gs.float())
-            + _col(gb.float()))
-
-
-def group_norm_kernel_act(x: torch.Tensor, gs: torch.Tensor, gb: torch.Tensor,
-                          act_swish: bool, stats: Stats) -> torch.Tensor:
-    """GroupNorm(+swish) in the kernel's numerics: f32 normalize with the
-    given per-channel stats, cast to x's dtype."""
-    out = _normalize(x, gs, gb, stats)
-    if act_swish:
-        out = out * torch.sigmoid(out)
-    return out.to(x.dtype)
-
-
-def spatial_norm_kernel_act(x: torch.Tensor, zq_r: torch.Tensor,
-                            gs: torch.Tensor, gb: torch.Tensor,
-                            wy: torch.Tensor, by: torch.Tensor,
-                            wb: torch.Tensor, bb: torch.Tensor,
-                            act_swish: bool, stats: Stats) -> torch.Tensor:
-    """SpatialNorm(+swish) in the kernel's numerics: the f32 dot-form
-    modulation (zq @ wy + by), not the broadcast form of
-    fused_norm.spatial_norm_reference. zq_r: [B, Z, H, W]; wy, wb: [C, Z]."""
-    out = _normalize(x, gs, gb, stats)
-    zf = zq_r.float().permute(0, 2, 3, 1)                  # [B, H, W, Z]
-    y = (zf @ wy.float().t() + by.float()).permute(0, 3, 1, 2)
-    bm = (zf @ wb.float().t() + bb.float()).permute(0, 3, 1, 2)
-    out = out * y + bm
-    if act_swish:
-        out = out * torch.sigmoid(out)
-    return out.to(x.dtype)
-
 
 def _conv3x3(a: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor
              ) -> torch.Tensor:
@@ -118,7 +93,7 @@ def _mom_epilogue(out: torch.Tensor, res: Optional[torch.Tensor],
 def chain_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=None, *,
                     stats: Stats, act_swish: bool = True,
                     emit_mom: bool = True):
-    """Plain version of the SpatialNorm-form chain: SpatialNorm(+swish)
+    """Plain version of the SpatialNorm-form kernel: SpatialNorm(+swish)
     from the given per-channel stats -> 3x3 conv [-> +residual], optional
     moments of the rounded output. Returns out, or (out, mom) with
     emit_mom."""
@@ -129,9 +104,28 @@ def chain_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=None, *,
 
 def plain_chain_reference(x, gs, gb, cw, cb, res=None, *, stats: Stats,
                           act_swish: bool = True, emit_mom: bool = True):
-    """Plain version of the GroupNorm-form chain; see chain_reference."""
+    """Plain version of the GroupNorm-form kernel; see chain_reference."""
     a = group_norm_kernel_act(x, gs, gb, act_swish, stats=stats)
     return _mom_epilogue(_conv3x3(a, cw, cb), res, x.dtype, emit_mom)
+
+
+def norm_conv_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb,
+                        act_swish: bool = True) -> torch.Tensor:
+    """The unfused composition (JAX `norm_conv_reference`): the default
+    path's SpatialNorm(+swish) in x's dtype, then the 3x3 SAME conv. What
+    the per-call op's gradient differentiates."""
+    a = spatial_norm_reference(x, zq_r, gs, gb, wy, by, wb, bb, act_swish)
+    return _conv3x3(a, cw, cb)
+
+
+def group_norm_conv_reference(x, gs, gb, cw, cb,
+                              act_swish: bool = True) -> torch.Tensor:
+    """GroupNorm(+swish) in f32, cast to x's dtype, then the 3x3 SAME conv
+    (JAX `group_norm_conv_reference`)."""
+    a = group_norm_reference(x, gs, gb)
+    if act_swish:
+        a = a * torch.sigmoid(a)
+    return _conv3x3(a.to(x.dtype), cw, cb)
 
 
 # ---------------------------------------------------------------- the kernel
@@ -150,33 +144,31 @@ def _need(t: torch.Tensor, name: str, shape: Sequence[int],
         raise ValueError(f"{name}: needs a contiguous tensor")
 
 
-def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
-                 gs: torch.Tensor, gb: torch.Tensor, stats: Stats,
-                 res: Optional[torch.Tensor] = None, emit_mom: bool = True,
-                 act_swish: bool = True, zq_r: Optional[torch.Tensor] = None,
-                 wy=None, by=None, wb=None, bb=None):
-    """Launch the CUDA chain kernel: the SpatialNorm form when zq_r is given
-    (with wy [C, Z], by, wb [C, Z], bb), the GroupNorm form otherwise.
-    CUDA tensors only: anything the kernel does not take raises, and a
-    failed build or launch raises. Returns out, or (out, mom)."""
+def _launch(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
+            gs: torch.Tensor, gb: torch.Tensor, stats: Stats,
+            res: Optional[torch.Tensor], emit_mom: bool, act_swish: bool,
+            zq_r: Optional[torch.Tensor], wy, by, wb, bb, caller: str):
+    """One launch of kernels/norm_conv_chain.cu, for the wrapper `caller`:
+    checks what the kernel takes, packs the weights, launches, raises on a
+    failed build or launch. Returns out, or (out, mom)."""
     if not x.is_cuda:
-        raise ValueError("chain_kernel launches a CUDA kernel and takes CUDA "
-                         "tensors only; use spatial_norm_conv_mom() or "
-                         "group_norm_conv_mom() for CPU tensors")
+        raise ValueError(f"{caller} launches a CUDA kernel and takes CUDA "
+                         "tensors only; use the dispatch (spatial_norm_conv"
+                         "[_mom], group_norm_conv[_mom]) for CPU tensors")
     if _needs_grad(x, cw, cb, gs, gb, *stats, res, zq_r, wy, by, wb, bb):
-        raise RuntimeError("chain_kernel records no gradient; under grad "
-                           "call spatial_norm_conv_mom() or "
-                           "group_norm_conv_mom()")
+        raise RuntimeError(f"{caller} records no gradient; under grad call "
+                           "the dispatch (spatial_norm_conv[_mom], "
+                           "group_norm_conv[_mom])")
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"chain_kernel takes float32 or bfloat16 x, got "
+        raise TypeError(f"{caller} takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"expected x [B, Cin, H, W], got {tuple(x.shape)}")
     b, cin, h, w = x.shape
     cout = cw.shape[0]
     if cin % 32 or cin > 512 or b > 65535 or x.numel() == 0:
-        raise ValueError(f"chain_kernel takes Cin a multiple of 32 up to "
-                         f"512 and B up to 65535, got x {tuple(x.shape)}")
+        raise ValueError(f"{caller} takes Cin a multiple of 32 up to 512 and "
+                         f"B up to 65535, got x {tuple(x.shape)}")
     dev = x.device
     _need(x, "x", (b, cin, h, w), x.dtype, dev)
     if tuple(cw.shape) != (cout, cin, 3, 3):
@@ -220,11 +212,41 @@ def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
             ctypes.c_int(int(modulate)), ctypes.c_int(int(act_swish)),
             ctypes.c_void_p(stream))
     build.check(lib, rc, "norm_conv_chain")
-    KERNEL_LAUNCHES["chain_sn" if modulate else "chain_gn"] += 1
     if not emit_mom:
         return out
     # per-tile partials summed over the tile axis in a fixed order
     return out, part.sum(dim=1)
+
+
+def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
+                 gs: torch.Tensor, gb: torch.Tensor, stats: Stats,
+                 res: Optional[torch.Tensor] = None, emit_mom: bool = True,
+                 act_swish: bool = True, zq_r: Optional[torch.Tensor] = None,
+                 wy=None, by=None, wb=None, bb=None):
+    """Launch the CUDA kernel as the chain (JAX `_kernel_chain`): the
+    SpatialNorm form when zq_r is given (with wy [C, Z], by, wb [C, Z], bb),
+    the GroupNorm form otherwise. CUDA tensors only: anything the kernel
+    does not take raises, and a failed build or launch raises. Returns out,
+    or (out, mom)."""
+    out = _launch(x, cw, cb, gs, gb, stats, res, emit_mom, act_swish, zq_r,
+                  wy, by, wb, bb, "chain_kernel")
+    KERNEL_LAUNCHES["chain_sn" if zq_r is not None else "chain_gn"] += 1
+    return out
+
+
+def norm_conv_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
+                     gs: torch.Tensor, gb: torch.Tensor, stats: Stats,
+                     act_swish: bool = True,
+                     zq_r: Optional[torch.Tensor] = None,
+                     wy=None, by=None, wb=None, bb=None) -> torch.Tensor:
+    """Launch the CUDA kernel as the per-call op (JAX `_kernel`): the
+    chain kernel with no residual and no moments, counted as norm_conv_sn /
+    norm_conv_gn. CUDA tensors only, as chain_kernel."""
+    out = _launch(x, cw, cb, gs, gb, stats, None, False, act_swish, zq_r,
+                  wy, by, wb, bb, "norm_conv_kernel")
+    KERNEL_LAUNCHES["norm_conv_sn" if zq_r is not None
+                    else "norm_conv_gn"] += 1
+    return out
 
 
 # ---------------------------------------------------------------- gradient
@@ -278,6 +300,42 @@ class _ChainFn(torch.autograd.Function):
             for t, n in zip(leaves, need))
 
 
+class _NormConvFn(torch.autograd.Function):
+    """The per-call op with a gradient (JAX `_make_norm_conv` /
+    `_make_group_norm_conv`): the forward is `_norm_conv_forward`; the
+    backward reruns norm_conv_reference / group_norm_conv_reference on the
+    saved inputs under autograd, stats recomputed from x, and differentiates
+    it. Inputs: modulate, act_swish, then x, zq_r, gs, gb, wy, by, wb, bb,
+    cw, cb (the SpatialNorm-only ones None in the GroupNorm form)."""
+
+    @staticmethod
+    def forward(ctx, modulate, act_swish, x, zq_r, gs, gb, wy, by, wb, bb, cw,
+                cb):
+        ctx.flags = (modulate, act_swish)
+        ctx.save_for_backward(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb)
+        return _norm_conv_forward(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb,
+                                  act_swish)
+
+    @staticmethod
+    def backward(ctx, g):
+        modulate, act_swish = ctx.flags
+        need = ctx.needs_input_grad[2:]
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        x, zq_r, gs, gb, wy, by, wb, bb, cw, cb = leaves
+        with torch.enable_grad():
+            if modulate:
+                out = norm_conv_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw,
+                                          cb, act_swish)
+            else:
+                out = group_norm_conv_reference(x, gs, gb, cw, cb, act_swish)
+        wanted = [t for t, n in zip(leaves, need) if n and t is not None]
+        got = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None, None) + tuple(
+            next(got) if n and t is not None else None
+            for t, n in zip(leaves, need))
+
+
 # ---------------------------------------------------------------- dispatch
 
 def _stats_for(x: torch.Tensor, stats: Optional[Stats]) -> Stats:
@@ -286,9 +344,9 @@ def _stats_for(x: torch.Tensor, stats: Optional[Stats]) -> Stats:
     return stats
 
 
-def _launch(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, stats, act_swish,
-            emit_mom):
-    """The kernel, inside _ChainFn where any input needs a gradient."""
+def _chain(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, stats, act_swish,
+           emit_mom):
+    """The chain kernel, inside _ChainFn where any input needs a gradient."""
     modulate = zq_r is not None
     if _needs_grad(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, *stats):
         return _ChainFn.apply(modulate, act_swish, emit_mom, x, zq_r, gs, gb,
@@ -306,8 +364,8 @@ def spatial_norm_conv_mom(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=None,
     cw: [Cout, Cin, 3, 3]. Returns out, or (out, mom [B, 2, Cout])."""
     stats = _stats_for(x, stats)
     if use_kernel(x):
-        return _launch(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, stats,
-                       act_swish, emit_mom)
+        return _chain(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res, stats,
+                      act_swish, emit_mom)
     return chain_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, res=res,
                            stats=stats, act_swish=act_swish,
                            emit_mom=emit_mom)
@@ -320,10 +378,64 @@ def group_norm_conv_mom(x, gs, gb, cw, cb, res=None,
     spatial_norm_conv_mom."""
     stats = _stats_for(x, stats)
     if use_kernel(x):
-        return _launch(x, None, gs, gb, None, None, None, None, cw, cb, res,
-                       stats, act_swish, emit_mom)
+        return _chain(x, None, gs, gb, None, None, None, None, cw, cb, res,
+                      stats, act_swish, emit_mom)
     return plain_chain_reference(x, gs, gb, cw, cb, res=res, stats=stats,
                                  act_swish=act_swish, emit_mom=emit_mom)
+
+
+def _norm_conv_forward(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb,
+                       act_swish: bool) -> torch.Tensor:
+    """JAX `_norm_conv_forward_impl`: stats from the moment pass, then the
+    kernel for a CUDA tensor, its plain version for a CPU tensor. zq_r and
+    the modulation weights are None in the GroupNorm form."""
+    stats = _stats_for(x, None)
+    if use_kernel(x):
+        return norm_conv_kernel(x, cw, cb, gs, gb, stats, act_swish, zq_r,
+                                wy, by, wb, bb)
+    if zq_r is not None:
+        return chain_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb,
+                               stats=stats, act_swish=act_swish,
+                               emit_mom=False)
+    return plain_chain_reference(x, gs, gb, cw, cb, stats=stats,
+                                 act_swish=act_swish, emit_mom=False)
+
+
+def _norm_conv(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, act_swish):
+    """The per-call op, inside _NormConvFn where any input needs a
+    gradient."""
+    args = (x, zq_r, gs, gb, wy, by, wb, bb, cw, cb)
+    if _needs_grad(*args):
+        return _NormConvFn.apply(zq_r is not None, act_swish, *args)
+    return _norm_conv_forward(*args, act_swish)
+
+
+def spatial_norm_conv(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb,
+                      act_swish: bool = True,
+                      use_fused: Optional[bool] = None) -> torch.Tensor:
+    """SpatialNorm(+swish) -> 3x3 SAME conv (JAX `spatial_norm_conv`): the
+    per-call kernel where `norm_conv_worthwhile` (or use_fused=True) says
+    so, the unfused composition norm_conv_reference otherwise. x:
+    [B, Cin, H, W]; zq_r: [B, 4, H, W] in x's dtype; wy, wb: [Cin, 4]; cw:
+    [Cout, Cin, 3, 3]."""
+    if use_fused is None:
+        use_fused = norm_conv_worthwhile(x.shape, cw.shape[0])
+    if use_fused:
+        return _norm_conv(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb, act_swish)
+    return norm_conv_reference(x, zq_r, gs, gb, wy, by, wb, bb, cw, cb,
+                               act_swish)
+
+
+def group_norm_conv(x, gs, gb, cw, cb, act_swish: bool = True,
+                    use_fused: Optional[bool] = None) -> torch.Tensor:
+    """GroupNorm(+swish) -> 3x3 SAME conv (JAX `group_norm_conv`); see
+    spatial_norm_conv."""
+    if use_fused is None:
+        use_fused = norm_conv_worthwhile(x.shape, cw.shape[0])
+    if use_fused:
+        return _norm_conv(x, None, gs, gb, None, None, None, None, cw, cb,
+                          act_swish)
+    return group_norm_conv_reference(x, gs, gb, cw, cb, act_swish)
 
 
 # ---------------------------------------------------------------- the gate
@@ -340,10 +452,93 @@ def admissible(x_shape: Sequence[int], cout: int) -> bool:
     return _row_block(h * w, c) > 0
 
 
+def _interpret_forced() -> bool:
+    """JAX's interpret switches, which lift the element gate (and, in JAX,
+    run the Pallas kernels in interpret mode: the port has no such mode and
+    launches its kernel for CUDA tensors)."""
+    return (os.environ.get("CONTROL_GIC_NORM_CONV") == "interpret"
+            or os.environ.get("CONTROL_GIC_CHAIN") == "interpret")
+
+
+def _fuse_min_elems() -> int:
+    """The element gate: CONTROL_GIC_NORM_CONV_MIN_ELEMS, else
+    CHAIN_MIN_ELEMS (JAX `_fuse_min_elems`)."""
+    return int(os.environ.get("CONTROL_GIC_NORM_CONV_MIN_ELEMS",
+                              CHAIN_MIN_ELEMS))
+
+
+# An engagement predicate (x_shape NCHW, cout) -> bool that replaces the
+# element gate of both gates (admissibility still applies), as JAX's
+# set_engagement_rule; a ContextVar, so it holds in the context that sets it.
+_RULE = contextvars.ContextVar("control_gic_tpu_torch_norm_conv_rule",
+                               default=None)
+_FORCED = contextvars.ContextVar("control_gic_tpu_torch_norm_conv_forced",
+                                 default=False)
+
+
+def set_engagement_rule(fn) -> None:
+    """Replace the element gate by fn(x_shape, cout) (None restores it)."""
+    _RULE.set(fn)
+
+
+class force_norm_conv:
+    """Engage the per-call op inside this context (still subject to
+    `admissible` and the element gate) without CONTROL_GIC_NORM_CONV=1, as
+    JAX's force_norm_conv; CONTROL_GIC_NORM_CONV=0 still turns it off."""
+
+    def __enter__(self):
+        self._tok = _FORCED.set(True)
+        return self
+
+    def __exit__(self, *exc):
+        _FORCED.reset(self._tok)
+        return False
+
+
+def _gate(x_shape: Sequence[int], cout: int) -> bool:
+    if _interpret_forced():
+        return True
+    rule = _RULE.get()
+    if rule is not None:
+        return bool(rule(x_shape, cout))
+    _, c, h, w = x_shape
+    return c * h * w >= _fuse_min_elems()
+
+
+def chain_enabled() -> bool:
+    """JAX `chain_enabled` with the H100 in the TPU's place: on unless
+    CONTROL_GIC_CHAIN=0 ('interpret' also lifts the element gate)."""
+    return os.environ.get("CONTROL_GIC_CHAIN", "") != "0"
+
+
+def norm_conv_enabled() -> bool:
+    """JAX `norm_conv_enabled` with the H100 in the TPU's place: on with
+    CONTROL_GIC_NORM_CONV=1 or 'interpret' (which also lifts the element
+    gate) or inside force_norm_conv, off with 0 and by default."""
+    flag = os.environ.get("CONTROL_GIC_NORM_CONV", "")
+    if flag == "interpret":
+        return True
+    if flag == "0":
+        return False
+    return flag == "1" or _FORCED.get()
+
+
+def norm_conv_worthwhile(x_shape: Sequence[int], cout: int) -> bool:
+    """Whether a norm+conv pair takes the per-call op (JAX
+    `norm_conv_worthwhile`): enabled, its conv admissible, and the element
+    gate. Module code branches on this, and keeps its unfused composition
+    where it says no."""
+    if not norm_conv_enabled() or not admissible(x_shape, cout):
+        return False
+    return _gate(x_shape, cout)
+
+
 def chain_admissible(x_shape: Sequence[int], cout: int) -> bool:
-    """Whether a ResnetBlock chains (JAX `chain_admissible`): both of its
-    convs admissible and at least CHAIN_MIN_ELEMS elements per sample."""
+    """Whether a ResnetBlock chains (JAX `chain_admissible`): the chain
+    enabled, both of its convs admissible, and the element gate."""
+    if not chain_enabled():
+        return False
     b, c, h, w = x_shape
     if not (admissible(x_shape, cout) and admissible((b, cout, h, w), cout)):
         return False
-    return c * h * w >= CHAIN_MIN_ELEMS
+    return _gate(x_shape, cout)

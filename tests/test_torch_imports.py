@@ -21,6 +21,8 @@ import control_gic_tpu_torch.models.lpips
 import control_gic_tpu_torch.models.discriminator
 import control_gic_tpu_torch.utils.checkpoint, control_gic_tpu_torch.utils.logging
 import control_gic_tpu_torch.utils.draw, control_gic_tpu_torch.data
+import control_gic_tpu_torch.parallel, control_gic_tpu_torch.parallel.tiling
+import control_gic_tpu_torch.cli.infer_highres
 import chip_smoke
 """
 CHECK = """

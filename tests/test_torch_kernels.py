@@ -377,3 +377,154 @@ def test_moment_kernel_refuses_what_it_does_not_take(cuda):
         FN.gn_moments_kernel(x.cpu())
     with pytest.raises(RuntimeError, match="gradient"):
         FN.gn_moments_kernel(x.requires_grad_())
+
+
+# ------------------------------------------------- per-call norm+conv op
+
+def _norm_conv_call(a, modulate):
+    if modulate:
+        return NC.spatial_norm_conv(a["x"], a["zq_r"], a["gs"], a["gb"],
+                                    a["wy"], a["by"], a["wb"], a["bb"],
+                                    a["cw"], a["cb"], use_fused=True)
+    return NC.group_norm_conv(a["x"], a["gs"], a["gb"], a["cw"], a["cb"],
+                              use_fused=True)
+
+
+@pytest.mark.parametrize("modulate", [True, False], ids=["sn", "gn"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b, cin, cout, h, w", [
+    (1, 256, 256, 24, 32), (2, 128, 4, 32, 48), (1, 128, 3, 13, 40),
+    (1, 512, 512, 16, 16), (1, 256, 128, 48, 16)])
+def test_norm_conv_call_matches_plain(cuda, modulate, dtype, b, cin, cout, h,
+                                      w):
+    """The per-call op (JAX `_kernel`): the moment pass, then the chain
+    kernel with no residual and no moments, counted as norm_conv_*."""
+    a = _chain_inputs(cuda, b, cin, cout, h, w, dtype, 3 * cin + cout + h)
+    before = {**NC.KERNEL_LAUNCHES, **FN.KERNEL_LAUNCHES}
+    got = _norm_conv_call(a, modulate)
+    torch.cuda.synchronize()
+    key = "norm_conv_sn" if modulate else "norm_conv_gn"
+    assert {**NC.KERNEL_LAUNCHES, **FN.KERNEL_LAUNCHES} == {
+        **before, key: before[key] + 1, "gn_moments": before["gn_moments"] + 1}
+    with plain_versions():
+        want = _norm_conv_call(a, modulate)
+    assert got.shape == (b, cout, h, w) and got.dtype == dtype
+    assert _rel_err(got, want) <= OUT_TOL[dtype]
+
+
+@pytest.mark.parametrize("modulate", [True, False], ids=["sn", "gn"])
+def test_norm_conv_call_gradients_match_plain(cuda, modulate):
+    """Under grad the op runs in _NormConvFn, whose backward differentiates
+    norm_conv_reference / group_norm_conv_reference (stats from x)."""
+    a = _chain_inputs(cuda, 2, 128, 128, 16, 32, torch.float32, 23)
+    names = ["x", "gs", "gb", "cw", "cb"]
+    names += ["zq_r", "wy", "by", "wb", "bb"] if modulate else []
+
+    def grads():
+        leaves = {n: a[n].detach().clone().requires_grad_() for n in names}
+        out = _norm_conv_call({**a, **leaves}, modulate)
+        g = torch.Generator(device=out.device).manual_seed(6)
+        loss = (out * torch.randn(out.shape, device=out.device,
+                                  generator=g)).sum()
+        return dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+
+    before = dict(NC.KERNEL_LAUNCHES)
+    got = grads()
+    key = "norm_conv_sn" if modulate else "norm_conv_gn"
+    assert NC.KERNEL_LAUNCHES[key] == before[key] + 1
+    with plain_versions():
+        want = grads()
+    for name in want:
+        assert _rel_err(got[name], want[name]) <= 1e-4, name
+
+
+# ------------------------------------------------------ SpatialNorm apply
+
+def _apply(a, act_swish, use_fused=True):
+    return FN.spatial_norm(a["x"], a["zq_r"], a["gs"], a["gb"], a["wy"],
+                           a["by"], a["wb"], a["bb"], act_swish=act_swish,
+                           use_fused=use_fused)
+
+
+@pytest.mark.parametrize("act_swish", [True, False], ids=["swish", "plain"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b, c, h, w", [(1, 512, 24, 40), (2, 128, 13, 9),
+                                        (1, 256, 64, 64), (3, 32, 5, 7)])
+def test_spatial_norm_apply_matches_plain(cuda, act_swish, dtype, b, c, h, w):
+    """The apply kernel (JAX `_apply_kernel`) after the moment pass against
+    its plain version, spatial_norm_kernel_act with the same stats; shapes
+    whose planes are not a multiple of the 16-byte vector take the scalar
+    path."""
+    a = _chain_inputs(cuda, b, c, 8, h, w, dtype, c + h + w)
+    before = dict(FN.KERNEL_LAUNCHES)
+    got = _apply(a, act_swish)
+    torch.cuda.synchronize()
+    assert FN.KERNEL_LAUNCHES == {
+        "gn_moments": before["gn_moments"] + 1,
+        "spatial_norm_apply": before["spatial_norm_apply"] + 1}
+    with plain_versions():
+        want = _apply(a, act_swish)
+    assert FN.KERNEL_LAUNCHES["spatial_norm_apply"] == (
+        before["spatial_norm_apply"] + 1)
+    assert got.shape == (b, c, h, w) and got.dtype == dtype
+    assert _rel_err(got, want) <= OUT_TOL[dtype]
+    assert torch.equal(got, _apply(a, act_swish))       # bit-stable
+
+
+def test_spatial_norm_gradients_match_reference(cuda):
+    """Under grad the switched SpatialNorm runs in _SpatialNormFn: the
+    kernels forward, the gradient of spatial_norm_reference backward."""
+    a = _chain_inputs(cuda, 2, 128, 8, 16, 32, torch.float32, 29)
+    names = ["x", "zq_r", "gs", "gb", "wy", "by", "wb", "bb"]
+
+    def grads(fn):
+        leaves = {n: a[n].detach().clone().requires_grad_() for n in names}
+        out = fn({**a, **leaves})
+        g = torch.Generator(device=out.device).manual_seed(7)
+        return out, dict(zip(leaves, torch.autograd.grad(
+            out, list(leaves.values()),
+            torch.randn(out.shape, device=out.device, generator=g))))
+
+    before = FN.KERNEL_LAUNCHES["spatial_norm_apply"]
+    out, got = grads(lambda b: _apply(b, True))
+    assert FN.KERNEL_LAUNCHES["spatial_norm_apply"] == before + 1
+    ref, want = grads(lambda b: _apply(b, True, use_fused=False))
+    assert _rel_err(out, ref) <= 1e-4
+    for name in want:
+        assert _rel_err(got[name], want[name]) <= 1e-5, name
+
+
+def test_stats_kernel_switch_launches_only_the_moments(cuda, monkeypatch):
+    monkeypatch.setenv("CONTROL_GIC_STATS_KERNEL", "1")
+    a = _chain_inputs(cuda, 1, 128, 8, 16, 16, torch.bfloat16, 31)
+    before = dict(FN.KERNEL_LAUNCHES)
+    got = _apply(a, True, use_fused=None)
+    assert FN.KERNEL_LAUNCHES == {**before,
+                                  "gn_moments": before["gn_moments"] + 1}
+    with plain_versions():
+        want = _apply(a, True, use_fused=None)
+    assert _rel_err(got, want) <= OUT_TOL[torch.bfloat16]
+
+
+def test_spatial_norm_apply_refuses_what_it_does_not_take(cuda):
+    a = _chain_inputs(cuda, 1, 64, 8, 8, 16, torch.float32, 2)
+    stats = NC.stats_from_moments(FN.gn_moments(a["x"]), 128)
+    call = lambda **kw: FN.spatial_norm_apply_kernel(**{
+        **dict(f=a["x"], zq_r=a["zq_r"], gs=a["gs"], gb=a["gb"], wy=a["wy"],
+               by=a["by"], wb=a["wb"], bb=a["bb"], stats=stats,
+               act_swish=True), **kw})
+    with pytest.raises(TypeError):
+        call(f=a["x"].half())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(f=a["x"].transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="zq_r"):
+        call(zq_r=a["zq_r"].bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        call(gs=a["gs"][:32])
+    with pytest.raises(ValueError, match="CUDA"):
+        call(f=a["x"].cpu())
+    with pytest.raises(RuntimeError, match="gradient"):
+        call(gs=a["gs"].clone().requires_grad_())
