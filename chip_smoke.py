@@ -8,7 +8,9 @@ Phases, each printing a line of its own:
      one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with its time, the plain version's, the
-     library call's and the bound;
+     library call's and the bound; the flash forward rows also with the
+     device time per launch (profiler), the share of the bound and the key
+     splits;
   4. 256x256 path: the full-width codec (random weights from a seed, bf16)
      compresses 256x256 images through stream files in all 7 modes, with a
      receiver-only decode from the files and the kernel launch counts, then
@@ -308,13 +310,16 @@ def phase_kernels(dev: dict) -> list:
         ref = A.attention_reference(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         ms = cuda_time_ms(lambda: A.flash_attention(q, k, v))
+        dev_us = device_us_per_launch(lambda: A.flash_attention(q, k, v))
         plain_ms = cuda_time_ms(lambda: A.attention_reference(q, k, v))
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None]))
         bms, bound_by = attn_bound_ms(b, tq, tk, c, dt, peaks)
         row = {"kernel": "flash_attn_fwd", "shape": [b, tq, tk, c],
                "dtype": dt, "max_abs_err": err, "tol": ATTN_TOL[dt],
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ms": ms, "device_us": dev_us, "bound_share": bms / ms,
+               "key_splits": flash_splits(b, tq, tk, c, dt),
+               "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bms, "bound_by": bound_by,
                "card": dev["nvidia_smi"]}
         log("kernel flash_attn_fwd", **row)
@@ -332,6 +337,24 @@ def phase_kernels(dev: dict) -> list:
     chain_grad_checks(gen)
     switched_grad_checks(gen)
     return rows
+
+
+def device_us_per_launch(fn, n: int = 5):
+    """Device time per call of `fn` from torch.profiler: every device kernel
+    in a window of n calls (for the flash forward, the main kernel and,
+    under split KV, the combine), over n; None where the profiler recorded
+    no device events. The CUDA-event time around the wrapper also holds the
+    wrapper's host work, which hides short kernels."""
+    fn()
+    _, busy, _, by_name = device_profile(lambda: [fn() for _ in range(n)])
+    return None if busy is None else sum(by_name.values()) / n
+
+
+def flash_splits(b, tq, tk, c, dt) -> int:
+    """The key splits the forward takes at this shape on this card."""
+    from control_gic_tpu_torch.kernels import build
+    return build.load("flash_attn_fwd").cgic_flash_attn_splits(
+        b, tq, tk, c, 1 if dt == "bfloat16" else 0)
 
 
 def sdpa_backend(q4, k4, v4) -> str:
@@ -377,6 +400,8 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
         abs_errs = {key: (got.float() - w.float()).abs().max().item()
                     for key, (got, w) in pairs.items()}
         del pairs
+        lse_dev_us = device_us_per_launch(
+            lambda: A.flash_attention(q, k, v, return_lse=True))
         ms = {"flash_attn_fwd_lse": cuda_time_ms(
                   lambda: A.flash_attention(q, k, v, return_lse=True)),
               "flash_attn_bwd_dkdv": cuda_time_ms(
@@ -429,6 +454,10 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
                    "library": f"SDPA {'forward' if name.endswith('lse') else 'forward + backward'}, backend {backend}",
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                    "card": dev["nvidia_smi"]}
+            if name == "flash_attn_fwd_lse":
+                row.update(device_us=lse_dev_us,
+                           bound_share=bounds[name][0] / ms[name],
+                           key_splits=flash_splits(b, tq, tk, c, dt))
             log(f"kernel {name}", **row)
             if not err <= tol:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -949,14 +978,16 @@ def log_profile(dev: dict, label: str, n: int, wall_us, busy, kernels,
         log(f"profile {label}", device_time="not measured (the profiler "
             "recorded no device events)", wall_ms_per_image=wall_us / n / 1e3)
         return
-    shares = _shares(by_name, ("flash_fwd_kernel", "chain_kernel",
+    # "flash_fwd_": every device kernel of the forward (the bf16 wgmma and
+    # f32 kernels and the split-KV combine)
+    shares = _shares(by_name, ("flash_fwd_", "chain_kernel",
                                "gn_moments_kernel", "apply_kernel"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     log(f"profile {label}", images=n, wall_ms_per_image=wall_us / n / 1e3,
         device_busy_ms_per_image=busy / n / 1e3,
         device_idle_share=1.0 - busy / wall_us,
         device_kernels_per_image=kernels / n,
-        flash_share_of_device_time=shares["flash_fwd_kernel"],
+        flash_share_of_device_time=shares["flash_fwd_"],
         chain_share_of_device_time=shares["chain_kernel"],
         moments_share_of_device_time=shares["gn_moments_kernel"],
         apply_share_of_device_time=shares["apply_kernel"],
@@ -1439,7 +1470,7 @@ def phase_train(dev: dict, workdir: str) -> dict:
     wall_us, busy, kernels, by_name = device_profile(
         lambda: trainer.train_step(state, batches[0]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    shares = _shares(by_name, ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+    shares = _shares(by_name, ("flash_fwd_", "flash_bwd_dkdv_kernel",
                                "flash_bwd_dq_kernel",
                                "flash_bwd_delta_kernel")) if by_name else {}
     log("train f32", config="CGICConfig(dtype=float32), 256x256, batch 2",

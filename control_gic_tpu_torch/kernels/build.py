@@ -31,9 +31,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # stream are c_void_p, so that ctypes never cuts them to 32 bits
 SIGNATURES = {
     "flash_attn_fwd": {
-        "cgic_flash_attn_fwd": (_I, [_P] * 5 + [_I] * 5
+        "cgic_flash_attn_fwd": (_I, [_P] * 6 + [_I] * 6
                                 + [ctypes.c_float, _P]),
-        "cgic_flash_attn_smem_bytes": (_L, [_I, _I]),
+        "cgic_flash_attn_splits": (_I, [_I] * 5),
     },
     "flash_attn_bwd": {
         "cgic_flash_attn_bwd_dkdv": (_I, [_P] * 9 + [_I] * 5

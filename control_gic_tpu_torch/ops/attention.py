@@ -8,8 +8,9 @@ q's dtype. Tq may differ from Tk.
 The forward:
   - `attention_reference`: the plain einsum path (JAX `attention_xla`);
   - `flash_attention_blocked_reference`: a torch replay of the flash kernel's
-    online softmax over key blocks, optionally with the per-row logsumexp,
-    for the CPU tests (the analog of Pallas `interpret=True`);
+    online softmax over key blocks at the kernel's blocking, with its split
+    KV combine, optionally with the per-row logsumexp, for the CPU tests (the
+    analog of Pallas `interpret=True`);
   - `flash_attention`: the CUDA kernel (kernels/flash_attn_fwd.cu), with the
     logsumexp when `return_lse` (JAX `attention_flash_with_lse`), for CUDA
     tensors only.
@@ -52,6 +53,8 @@ KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dkdv": 0,
                    "flash_bwd_dq": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (device, B, Tq, Tk, C, dtype code) -> the forward's key splits on that card
+_SPLITS = {}
 _MAX_C = 512
 
 
@@ -70,36 +73,73 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(w.float(), v.float()).to(q.dtype)
 
 
+def kernel_blocks(dtype: torch.dtype, c: int) -> Tuple[int, int]:
+    """The forward kernel's (query rows, keys) a tile: 64 query rows; in
+    bf16 32 keys a stage where C rounded up to 128 is above 256, else 64; in
+    f32 64 (kernels/flash_attn_fwd.cu, Bf16Cfg and F32Cfg)."""
+    if dtype == torch.bfloat16 and -(-c // 128) * 128 > 256:
+        return 64, 32
+    return 64, 64
+
+
 def flash_attention_blocked_reference(q: torch.Tensor, k: torch.Tensor,
-                                      v: torch.Tensor, block_q: int = 32,
-                                      block_k: int = 64,
-                                      return_lse: bool = False):
+                                      v: torch.Tensor,
+                                      block_q: Optional[int] = None,
+                                      block_k: Optional[int] = None,
+                                      return_lse: bool = False,
+                                      splits: int = 1):
     """The kernel's arithmetic replayed block by block: per query block a
     running max, denominator and f32 accumulator, rescaled by
     exp(m_prev - m_new) at each key block, p cast to v's dtype before PV.
-    Blocks need not divide the lengths. With return_lse, also the per-row
-    logsumexp m + log l of the scaled logits, [B, Tq] f32."""
+    Blocks need not divide the lengths; they default to the kernel's
+    (`kernel_blocks`). With splits > 1 the key blocks are cut into that many
+    contiguous runs of ceil(blocks / splits) each, every run keeps its own
+    (acc, m, l), and the runs are folded in order as the kernel's combine
+    does: M = max m_s, w_s = exp(m_s - M), L = Σ l_s w_s, out = Σ acc_s w_s
+    / L. With return_lse, also the per-row logsumexp m + log l of the scaled
+    logits, [B, Tq] f32."""
     b, tq, c = q.shape
     tk = k.shape[1]
+    dq, dk = kernel_blocks(q.dtype, c)
+    block_q, block_k = block_q or dq, block_k or dk
+    nkt = -(-tk // block_k)
+    per = -(-nkt // splits)
+    if splits < 1 or (splits - 1) * per >= nkt:
+        raise ValueError(f"{splits} splits of {nkt} key blocks leave one "
+                         f"empty")
     scale = float(c) ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty(b, tq, dtype=torch.float32, device=q.device)
     for q0 in range(0, tq, block_q):
         qb = q[:, q0:q0 + block_q].float()
         rows = qb.shape[1]
-        m = torch.full((b, rows, 1), float("-inf"), device=q.device)
-        l = torch.zeros((b, rows, 1), device=q.device)
-        acc = torch.zeros((b, rows, c), device=q.device)
-        for k0 in range(0, tk, block_k):
-            kb = k[:, k0:k0 + block_k].float()
-            vb = v[:, k0:k0 + block_k]
-            s = torch.matmul(qb, kb.transpose(1, 2)) * scale
-            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1, keepdim=True)
-            acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vb.float())
-            m = m_new
+        parts = []
+        for t0 in range(0, nkt, per):
+            m = torch.full((b, rows, 1), float("-inf"), device=q.device)
+            l = torch.zeros((b, rows, 1), device=q.device)
+            acc = torch.zeros((b, rows, c), device=q.device)
+            for k0 in range(t0 * block_k, min(nkt, t0 + per) * block_k,
+                            block_k):
+                kb = k[:, k0:k0 + block_k].float()
+                vb = v[:, k0:k0 + block_k]
+                s = torch.matmul(qb, kb.transpose(1, 2)) * scale
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1, keepdim=True)
+                acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
+                                                vb.float())
+                m = m_new
+            parts.append((acc, m, l))
+        if len(parts) == 1:
+            acc, m, l = parts[0]
+        else:
+            m = torch.stack([pm for _, pm, _ in parts]).amax(dim=0)
+            acc, l = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
+            for pa, pm, pl in parts:
+                w = torch.exp(pm - m)
+                l = l + pl * w
+                acc = acc + pa * w
         out[:, q0:q0 + block_q] = (acc / l).to(q.dtype)
         lse[:, q0:q0 + block_q] = (m + torch.log(l))[..., 0]
     return (out, lse) if return_lse else out
@@ -202,20 +242,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA flash-attention forward; with return_lse also the
     per-row logsumexp [B, Tq] f32 (the training forward). CUDA tensors
     only: anything the kernel does not take raises, and a failed build or
-    launch raises. Returns out, or (out, lse)."""
+    launch raises. Returns out, or (out, lse). Where the query tiles alone
+    would not fill the card the kernel splits the keys: the f32 workspace
+    for the splits' partials is allocated here, and the combine pass is part
+    of the one launch that the count records."""
     _check("flash_attention", q, k, v)
     b, tq, c = q.shape
+    tk, code = k.shape[1], _DTYPE_CODE[q.dtype]
     from ..kernels import build
     lib = build.load("flash_attn_fwd")
     out = torch.empty_like(q)
     lse = (torch.empty(b, tq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     with torch.cuda.device(q.device):
+        key = (q.device.index, b, tq, tk, c, code)
+        splits = _SPLITS.get(key)
+        if splits is None:
+            splits = _SPLITS[key] = lib.cgic_flash_attn_splits(b, tq, tk, c,
+                                                               code)
+        if splits < 1:
+            raise RuntimeError(f"flash_attn_fwd: no key split count for "
+                               f"{tuple(q.shape)}, Tk={tk} ({splits})")
+        ws = (torch.empty(splits * b * tq * (c + 2), dtype=torch.float32,
+                          device=q.device) if splits > 1 else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.cgic_flash_attn_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
-            ctypes.c_int(b), ctypes.c_int(tq), ctypes.c_int(k.shape[1]),
-            ctypes.c_int(c), ctypes.c_int(_DTYPE_CODE[q.dtype]),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(ws),
+            ctypes.c_int(b), ctypes.c_int(tq), ctypes.c_int(tk),
+            ctypes.c_int(c), ctypes.c_int(code), ctypes.c_int(splits),
             ctypes.c_float(float(c) ** -0.5), ctypes.c_void_p(stream))
     build.check(lib, rc, "flash_attn_fwd")
     KERNEL_LAUNCHES["flash_fwd_lse" if return_lse else "flash_fwd"] += 1

@@ -68,6 +68,63 @@ def test_blocked_replay_ragged_blocks():
         tat.attention_reference(q, k, v).numpy(), atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, tq, tk, c", [(1, 512, 512, 64),
+                                          (1, 512, 512, 256),
+                                          (1, 256, 1024, 64),
+                                          (1, 256, 512, 384)])
+def test_blocked_replay_kernel_blocking_matches_pallas_interpret(b, tq, tk,
+                                                                 c, dtype):
+    """The replay at the CUDA kernel's own blocking (64 query rows; 32 keys
+    for bf16 above C = 256, else 64), its defaults."""
+    (jq, jk, jv), (tq_, tk_, tv) = _both(_qkv(11 + c, b, tq, tk, c), dtype)
+    want = _np(jat.attention_flash(jq, jk, jv, 256, 256, interpret=True))
+    got = tat.flash_attention_blocked_reference(tq_, tk_, tv)
+    assert tat.kernel_blocks(tq_.dtype, c) == (
+        (64, 32) if dtype == "bfloat16" and c > 256 else (64, 64))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [2, 3, 4])
+def test_blocked_replay_split_kv_matches_pallas_interpret(splits, dtype):
+    """Split KV: each run of key blocks keeps its own (acc, m, l) and the
+    runs fold in order, out and lse against the Pallas lse kernel."""
+    b, tq, tk, c = 2, 256, 1024, 64
+    (jq, jk, jv), (q, k, v) = _both(_qkv(13 + splits, b, tq, tk, c), dtype)
+    jo, jlse = jat.attention_flash_with_lse(jq, jk, jv, 256, 256,
+                                            interpret=True)
+    o, lse = tat.flash_attention_blocked_reference(q, k, v, return_lse=True,
+                                                   splits=splits)
+    assert lse.shape == (b, tq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(), _np(jo), atol=TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), _np(jlse)[..., 0], atol=1e-5)
+
+
+@pytest.mark.parametrize("block_q, block_k, splits", [(64, 64, 1),
+                                                      (64, 32, 1),
+                                                      (64, 32, 3),
+                                                      (64, 64, 2)])
+def test_blocked_replay_kernel_blocking_ragged(block_q, block_k, splits):
+    """Lengths that the kernel's blocks do not divide, with and without
+    split KV."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 2, 100, 130, 32))
+    got, lse = tat.flash_attention_blocked_reference(
+        q, k, v, block_q, block_k, return_lse=True, splits=splits)
+    np.testing.assert_allclose(got.numpy(),
+                               tat.attention_reference(q, k, v).numpy(),
+                               atol=1e-5)
+    logits = torch.matmul(q, k.transpose(1, 2)) * 32 ** -0.5
+    np.testing.assert_allclose(lse.numpy(),
+                               torch.logsumexp(logits, -1).numpy(), atol=1e-5)
+
+
+def test_blocked_replay_refuses_an_empty_split():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 64, 256, 32))
+    with pytest.raises(ValueError, match="empty"):    # 4 blocks of 64 keys
+        tat.flash_attention_blocked_reference(q, k, v, 64, 64, splits=3)
+
+
 def test_dispatch_on_cpu_takes_the_plain_path():
     q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 4096, 4096, 16))
     before = dict(tat.KERNEL_LAUNCHES)

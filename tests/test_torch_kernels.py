@@ -41,7 +41,13 @@ def _qkv(device, b, tq, tk, c, dtype, seed):
 @pytest.mark.parametrize("b, tq, tk, c", [(2, 100, 130, 64),
                                           (1, 4096, 4096, 256),
                                           (1, 33, 4096, 512),
-                                          (3, 64, 65, 16)])
+                                          (3, 64, 65, 16),
+                                          (1, 4096, 4096, 512),
+                                          (1, 1024, 4096, 512),
+                                          (1, 4100, 4100, 512),
+                                          (1, 4100, 4100, 256),
+                                          (2, 1000, 4100, 256),
+                                          (1, 300, 4096, 384)])
 def test_flash_kernel_matches_plain(cuda, b, tq, tk, c, dtype, tol):
     q, k, v = _qkv(cuda, b, tq, tk, c, dtype, tq + tk + c)
     before = A.KERNEL_LAUNCHES["flash_fwd"]
@@ -53,16 +59,42 @@ def test_flash_kernel_matches_plain(cuda, b, tq, tk, c, dtype, tol):
     assert err.item() <= tol
 
 
-def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _qkv(cuda, 1, 64, 64, 32, torch.float32, 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_refuses_what_it_does_not_take(cuda, dtype):
+    q, k, v = _qkv(cuda, 1, 64, 64, 32, dtype, 0)
     with pytest.raises(ValueError, match="contiguous"):
         A.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                           k, v)
     with pytest.raises(TypeError):
         A.flash_attention(q.half(), k.half(), v.half())
-    big = _qkv(cuda, 1, 16, 16, 528, torch.float32, 1)
+    with pytest.raises(TypeError):
+        A.flash_attention(q, k.float() if dtype != torch.float32
+                          else k.bfloat16(), v)
+    big = _qkv(cuda, 1, 16, 16, 528, dtype, 1)
     with pytest.raises(ValueError, match="head dim"):
         A.flash_attention(*big)
+    odd = _qkv(cuda, 1, 16, 16, 40, dtype, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_attention(*odd)
+    with pytest.raises(ValueError, match="aligned"):
+        A.flash_attention(*(t.flatten()[1:1 + 63 * 32].view(1, 63, 32)
+                            for t in _qkv(cuda, 1, 64, 64, 32, dtype, 3)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b, tq, tk, c", [(1, 1024, 4096, 512),
+                                          (1, 4096, 4096, 512),
+                                          (2, 1000, 4100, 256)])
+def test_flash_forward_is_bit_stable(cuda, dtype, b, tq, tk, c):
+    """Two launches give the same bytes, split KV (its fixed-order
+    combine) included: 1024 and 4096 query rows at B = 1 split the keys."""
+    q, k, v = _qkv(cuda, b, tq, tk, c, dtype, 17 + c)
+    first = A.flash_attention(q, k, v, return_lse=True)
+    second = A.flash_attention(q, k, v, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert torch.equal(A.flash_attention(q, k, v), first[0])
 
 
 def test_dispatch_engages_the_kernel_from_4096_keys(cuda):
@@ -109,7 +141,11 @@ def test_attention_gradient_reaches_q_k_v(cuda):
 @pytest.mark.parametrize("b, tq, tk, c", [(2, 256, 256, 64),
                                           (1, 100, 130, 64),
                                           (2, 33, 4096, 512),
-                                          (1, 4096, 4096, 256)])
+                                          (1, 4096, 4096, 256),
+                                          (1, 4096, 4096, 512),
+                                          (1, 1024, 4096, 512),
+                                          (1, 4100, 4100, 512),
+                                          (2, 1000, 4100, 256)])
 def test_flash_lse_matches_logsumexp(cuda, dtype, b, tq, tk, c):
     q, k, v = _qkv(cuda, b, tq, tk, c, dtype, 3 * tq + c)
     before = dict(A.KERNEL_LAUNCHES)
