@@ -5,11 +5,12 @@
 Phases, each printing a line of its own:
   1. device: the card's name and power limit (nvidia-smi); fails without CUDA;
   2. build: compiles every CUDA kernel of the main paths from this checkout,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together, and fails if ptxas reports
+     a spill in an f32 flash backward instantiation;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes of the main paths, with its time, the plain version's, the
-     library call's and the bound; the flash forward rows also with the
-     device time per launch (profiler), the share of the bound and the key
+     the shapes of the main paths, with its time, the device time per launch
+     (profiler), the plain version's, the library call's and the bound; the
+     flash rows also with the share of the bound, the forward's with its key
      splits;
   4. 256x256 path: the full-width codec (random weights from a seed, bf16)
      compresses 256x256 images through stream files in all 7 modes, with a
@@ -26,7 +27,8 @@ Phases, each printing a line of its own:
      batch 2, through the train CLI's loop on synthetic batches: the first
      step's generator gradients with the kernels against the same step under
      ops.plain_versions(), 3 steps with exact launch counts per step, one
-     eval step, a checkpoint save and restore, a profile of one step; then 2
+     eval step, a checkpoint save and restore, a profile of one step (device
+     ms of the flash backward kernels, busy time, idle share); then 2
      bf16 steps with the same launch checks, and the train CLI on PNGs when
      PIL is installed;
   9. 256x256 with CONTROL_GIC_FUSED_NORM=1: the phase-4 round trip with the
@@ -119,13 +121,14 @@ CHAIN_SHAPES = [("gn", 512, 768, 128, 128, True, True, "bfloat16"),
                 ("gn", 256, 384, 256, 256, True, True, "float32")]
 # the training kernels' shapes (B, Tq, Tk, C, dtype): the 256x256 batch-2
 # training step's four attentions (C=512 in the decoder's mids, 256 in the
-# encoder's fine head), in the recipe's f32 and in bf16; then a ragged
-# length and a Tq != Tk
+# encoder's fine head), in the recipe's f32 and in bf16; then ragged
+# lengths and a Tq != Tk
 TRAIN_ATTN_SHAPES = [(2, 4096, 4096, 512, "float32"),
                      (2, 4096, 4096, 256, "float32"),
                      (2, 4096, 4096, 512, "bfloat16"),
                      (2, 4096, 4096, 256, "bfloat16"),
                      (1, 4100, 4100, 512, "bfloat16"),
+                     (1, 4100, 4100, 512, "float32"),
                      (2, 1024, 4096, 512, "float32")]
 # chain gradient checks: one GroupNorm-form and one SpatialNorm-form Kodak
 # shape, (form, H, W, Cin, Cout, residual), f32
@@ -281,6 +284,32 @@ def phase_build() -> None:
     for name, (secs, report) in build.BUILD_LOG.items():
         print(f"[ptxas {name}] {secs:.2f} s\n{report.strip()}", flush=True)
     log("build", seconds=round(time.perf_counter() - t0, 3), libraries=paths)
+    if "flash_attn_bwd" in build.BUILD_LOG:
+        f32 = {name: entry for name, entry in ptxas_entries(
+            build.BUILD_LOG["flash_attn_bwd"][1]).items() if "_f32_" in name}
+        log("ptxas f32 backward", kernels=f32)
+        if len(f32) != 8 or any(st or ld for _, st, ld in f32.values()):
+            raise AssertionError(f"f32 backward instantiations: expected 8 "
+                                 f"without spills, got {f32}")
+
+
+def ptxas_entries(report: str) -> dict:
+    """kernel -> (registers, spill store bytes, spill load bytes) from a
+    ptxas -v report; the flash backward's templates by their short names
+    (flash_bwd_dq_f32_kernel<8>), others mangled."""
+    import re
+    out = {}
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        short = re.search(r"(flash_bwd_\w+?_kernel)ILi(\d+)E", name)
+        if short:
+            name = f"{short.group(1)}<{short.group(2)}>"
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        out[name] = (int(regs.group(1)) if regs else None,
+                     int(spill.group(1)), int(spill.group(2)))
+    return out
 
 
 def attn_bound_ms(b, tq, tk, c, dtype, peaks) -> tuple:
@@ -294,9 +323,9 @@ def phase_kernels(dev: dict) -> list:
     import torch.nn.functional as F
 
     from control_gic_tpu_torch.ops import attention as A
+    from control_gic_tpu_torch.utils.device import use_fp32_pipes
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_fp32_pipes()
     peaks = card_peaks(dev["name"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -342,9 +371,10 @@ def phase_kernels(dev: dict) -> list:
 def device_us_per_launch(fn, n: int = 5):
     """Device time per call of `fn` from torch.profiler: every device kernel
     in a window of n calls (for the flash forward, the main kernel and,
-    under split KV, the combine), over n; None where the profiler recorded
-    no device events. The CUDA-event time around the wrapper also holds the
-    wrapper's host work, which hides short kernels."""
+    under split KV, the combine; for the dk/dv backward, the delta pre-pass
+    and the kernel), over n; None where the profiler recorded no device
+    events. The CUDA-event time around the wrapper also holds the wrapper's
+    host work, which hides short kernels."""
     fn()
     _, busy, _, by_name = device_profile(lambda: [fn() for _ in range(n)])
     return None if busy is None else sum(by_name.values()) / n
@@ -400,8 +430,14 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
         abs_errs = {key: (got.float() - w.float()).abs().max().item()
                     for key, (got, w) in pairs.items()}
         del pairs
-        lse_dev_us = device_us_per_launch(
-            lambda: A.flash_attention(q, k, v, return_lse=True))
+        dev_us = {
+            "flash_attn_fwd_lse": device_us_per_launch(
+                lambda: A.flash_attention(q, k, v, return_lse=True)),
+            "flash_attn_bwd_dkdv": device_us_per_launch(
+                lambda: A.flash_attention_backward_dkdv(q, k, v, o, lse, do)),
+            "flash_attn_bwd_dq": device_us_per_launch(
+                lambda: A.flash_attention_backward_dq(q, k, v, do, lse,
+                                                      delta))}
         ms = {"flash_attn_fwd_lse": cuda_time_ms(
                   lambda: A.flash_attention(q, k, v, return_lse=True)),
               "flash_attn_bwd_dkdv": cuda_time_ms(
@@ -453,11 +489,11 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
                    else lib_fb,
                    "library": f"SDPA {'forward' if name.endswith('lse') else 'forward + backward'}, backend {backend}",
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                   "device_us": dev_us[name],
+                   "bound_share": bounds[name][0] / ms[name],
                    "card": dev["nvidia_smi"]}
             if name == "flash_attn_fwd_lse":
-                row.update(device_us=lse_dev_us,
-                           bound_share=bounds[name][0] / ms[name],
-                           key_splits=flash_splits(b, tq, tk, c, dt))
+                row.update(key_splits=flash_splits(b, tq, tk, c, dt))
             log(f"kernel {name}", **row)
             if not err <= tol:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -594,7 +630,9 @@ def chain_rows(dev: dict, peaks, gen) -> list:
                "shape": [1, cin, h, w], "cout": cout, "residual": with_res,
                "emit_mom": emit, "dtype": dt, "max_abs_err": max_abs,
                "rel_err": err, "tol": OUT_TOL[dt], "mom_rel_err": mom_err,
-               "mom_tol": MOM_TOL[dt], "ms": ms, "plain_ms": plain_ms,
+               "mom_tol": MOM_TOL[dt], "ms": ms,
+               "device_us": device_us_per_launch(kernel),
+               "plain_ms": plain_ms,
                "library_ms": lib_ms, "library": "F.conv2d, conv only",
                "bound_ms": bms, "bound_by": bound_by,
                "card": dev["nvidia_smi"]}
@@ -627,6 +665,8 @@ def moment_rows(dev: dict, peaks, gen) -> list:
         row = {"kernel": "gn_moments", "shape": [b, c, h, w],
                "dtype": "bfloat16", "rel_err": err, "tol": MOM_TOL["bfloat16"],
                "max_abs_err": (got - want).abs().max().item(), "ms": ms,
+               "device_us": device_us_per_launch(
+                   lambda: FN.gn_moments_kernel(x)),
                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms,
                "bound_by": bound_by, "card": dev["nvidia_smi"]}
         log("kernel gn_moments", **row)
@@ -679,6 +719,7 @@ def apply_rows(dev: dict, peaks, gen) -> list:
                "swish": swish, "dtype": dt, "rel_err": err,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
                "tol": OUT_TOL[dt], "ms": cuda_time_ms(kernel),
+               "device_us": device_us_per_launch(kernel),
                "plain_ms": cuda_time_ms(plain), "library_ms": None,
                "bound_ms": bms, "bound_by": bound_by,
                "card": dev["nvidia_smi"]}
@@ -737,6 +778,7 @@ def norm_conv_rows(dev: dict, peaks, gen) -> list:
                "cout": cout, "dtype": dt, "rel_err": err,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
                "tol": OUT_TOL[dt], "ms": cuda_time_ms(kernel),
+               "device_us": device_us_per_launch(kernel),
                "plain_ms": cuda_time_ms(plain), "library_ms": lib_ms,
                "library": "F.conv2d, conv only", "bound_ms": bms,
                "bound_by": bound_by, "card": dev["nvidia_smi"]}
@@ -1008,9 +1050,9 @@ def phase_f32_parity(image) -> None:
     from control_gic_tpu_torch.ops import attention as A
     from control_gic_tpu_torch.ops.entropy import patch_entropy
     from control_gic_tpu_torch.ops.resample import upsample_nearest
+    from control_gic_tpu_torch.utils.device import use_fp32_pipes
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_fp32_pipes()
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     cpu = CGIC(CGICConfig(dtype="float32"),
@@ -1130,9 +1172,9 @@ def phase_kodak_f32(codec, image) -> None:
     import torch
 
     from control_gic_tpu_torch.models import CGIC, CGICConfig
+    from control_gic_tpu_torch.utils.device import use_fp32_pipes
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_fp32_pipes()
     t0 = time.perf_counter()
     model = CGIC(CGICConfig(dtype="float32"),
                  generator=torch.Generator().manual_seed(1)).cuda().eval()
@@ -1278,9 +1320,9 @@ def phase_tile_f32(image) -> None:
     import torch
 
     from control_gic_tpu_torch.models import CGIC, CGICConfig
+    from control_gic_tpu_torch.utils.device import use_fp32_pipes
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_fp32_pipes()
     t0 = time.perf_counter()
     model = CGIC(CGICConfig(dtype="float32"),
                  generator=torch.Generator().manual_seed(1)).cuda().eval()
@@ -1385,8 +1427,6 @@ def phase_train(dev: dict, workdir: str) -> dict:
     from control_gic_tpu_torch.utils.checkpoint import (latest_step,
                                                         restore_checkpoint)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     cfg, tcfg = CGICConfig(dtype="float32"), TrainConfig()
     trainer = Trainer(cfg, tcfg)
@@ -1470,9 +1510,11 @@ def phase_train(dev: dict, workdir: str) -> dict:
     wall_us, busy, kernels, by_name = device_profile(
         lambda: trainer.train_step(state, batches[0]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    shares = _shares(by_name, ("flash_fwd_", "flash_bwd_dkdv_kernel",
-                               "flash_bwd_dq_kernel",
-                               "flash_bwd_delta_kernel")) if by_name else {}
+    # the bf16 and f32 instantiations of each backward kernel by one name
+    bwd_keys = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")
+    shares = _shares(by_name, ("flash_fwd_",) + bwd_keys) if by_name else {}
+    bwd_ms = {key: sum(v for k, v in by_name.items() if key in k) / 1e3
+              for key in bwd_keys}
     log("train f32", config="CGICConfig(dtype=float32), 256x256, batch 2",
         params=sum(p.numel() for p in state.gen.parameters()),
         steps=TRAIN_STEPS, step_ms=rec.ms,
@@ -1485,6 +1527,9 @@ def phase_train(dev: dict, workdir: str) -> dict:
         device_busy_ms=None if busy is None else busy / 1e3,
         device_idle_share=None if busy is None else 1.0 - busy / wall_us,
         device_kernels=kernels, flash_shares_of_device_time=shares,
+        backward_device_ms_per_step=bwd_ms,
+        backward_share_of_device_busy=None if not busy
+        else sum(bwd_ms.values()) * 1e3 / busy,
         top_kernels_ms={k: v / 1e3 for k, v in top},
         card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
     del state, trainer, rec

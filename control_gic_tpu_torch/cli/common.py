@@ -10,7 +10,7 @@ import torch
 
 from ..codec import CGICCodec
 from ..models import CGIC, CGICConfig
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, use_fp32_pipes
 
 
 def build_codec(ckpt: Optional[str] = None,
@@ -25,8 +25,9 @@ def build_codec(ckpt: Optional[str] = None,
 
     config=None is the flagship config with activations in bfloat16 on CUDA
     and float32 on the CPU; a training checkpoint needs the config it was
-    trained with."""
+    trained with. TF32 is turned off (`use_fp32_pipes`)."""
     dev = resolve_device(device)
+    use_fp32_pipes()
     if config is None:
         config = CGICConfig(
             dtype="float32" if dev.type == "cpu" else "bfloat16")

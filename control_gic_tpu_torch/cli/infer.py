@@ -20,6 +20,7 @@ import numpy as np
 
 from ..codec import EncodedImage
 from ..data import EvalImageDataset
+from ..utils.device import use_fp32_pipes
 from ..utils.metrics import psnr
 from .common import build_codec, save_png
 
@@ -72,6 +73,7 @@ def _compress_batched(codec, dataset, rc, rm, batch, stream_dir):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    use_fp32_pipes()
     rc, rm = args.ratios
     os.makedirs(args.output_dir, exist_ok=True)
     stream_dir = os.path.join(args.output_dir, "streams")

@@ -28,6 +28,7 @@ import numpy as np
 
 from ..data import EvalImageDataset
 from ..parallel.tiling import compress_tiled
+from ..utils.device import use_fp32_pipes
 from ..utils.metrics import psnr
 from .common import build_codec, save_png
 
@@ -75,6 +76,7 @@ def main(argv=None, codec=None):
     --ckpt and --device. Returns one record per image: (index, bpp, PSNR in
     dB, seconds)."""
     args = get_parser().parse_args(argv)
+    use_fp32_pipes()
     for name, why in UNPORTED.items():
         if getattr(args, name):
             raise NotImplementedError(why)

@@ -36,7 +36,7 @@ import numpy as np
 from ..models.cgic import CGICConfig
 from ..train import TrainConfig, Trainer, create_train_state
 from ..utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, use_fp32_pipes
 from ..utils.logging import ImageLogger, MetricLogger, log_schedule_hit
 
 
@@ -121,6 +121,7 @@ def run_configs(args):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     resolve_device(args.device)
+    use_fp32_pipes()
     if args.debug_nans:
         import torch
         torch.autograd.set_detect_anomaly(True)

@@ -36,7 +36,8 @@ from ..ops.norm_conv import (chain_admissible, group_norm_conv,
                              group_norm_conv_mom, norm_conv_worthwhile,
                              spatial_norm_conv, spatial_norm_conv_mom,
                              stats_from_moments)
-from ..ops.resample import nearest_resize, upsample2_conv3x3
+from ..ops.resample import (nearest_resize, subpixel_enabled,
+                            upsample2_conv3x3, upsample_nearest)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -226,13 +227,17 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """x2 nearest upsample then 3x3 conv, in the subpixel form (the four
-    output phases as one 2x2 conv at low resolution)."""
+    """x2 nearest upsample then 3x3 conv: in the subpixel form (the four
+    output phases as one 2x2 conv at low resolution) unless
+    CONTROL_GIC_SUBPIXEL=0, which runs the two steps as written. Same
+    parameters either way."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2_conv3x3(x.to(self.conv.dtype), self.conv.weight,
-                                 self.conv.bias)
+        if subpixel_enabled():
+            return upsample2_conv3x3(x.to(self.conv.dtype), self.conv.weight,
+                                     self.conv.bias)
+        return self.conv(upsample_nearest(x, 2))

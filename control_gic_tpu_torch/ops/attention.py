@@ -145,55 +145,82 @@ def flash_attention_blocked_reference(q: torch.Tensor, k: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def kernel_bwd_blocks(dtype: torch.dtype, c: int
+                      ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The backward kernels' tiles, ((query rows a step, keys a CTA) of the
+    dk/dv kernel, (query rows a CTA, keys a step) of the dq kernel): in bf16
+    (32, 16) and (32, 32) (kernels/flash_attn_bwd.cu, Bf16Cfg); in f32 a CTA
+    owns 32 rows and walks the other side 64 at a time, at every C
+    (F32Cfg)."""
+    if dtype == torch.bfloat16:
+        return (32, 16), (32, 32)
+    return (64, 32), (32, 64)
+
+
 def flash_attention_backward_blocked_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        lse: torch.Tensor, do: torch.Tensor, block_q: int = 32,
-        block_k: int = 16) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        lse: torch.Tensor, do: torch.Tensor, block_q: Optional[int] = None,
+        block_k: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' arithmetic replayed block by block (JAX
     `_flash_backward`): delta = rowsum(do∘o) once in f32; per key block a
     walk over the query blocks for dk and dv, per query block a walk over
-    the key blocks for dq. p = exp(s·scale − lse) in f32, rounded to the
-    operand dtype before pᵀ do; ds = p∘(do vᵀ − delta), rounded before dsᵀ q
-    and ds k; each block product of dk and dq is scaled once. lse is
-    [B, Tq] f32. Blocks need not divide the lengths."""
+    the key blocks for dq. p = exp(s·scale − lse) in f32; ds = p∘(do vᵀ −
+    delta). In bf16, p is rounded before pᵀ do, ds before dsᵀ q and ds k,
+    and each block product of dk and dq is scaled once (JAX's order); in
+    f32 the scale is folded into ds (ds·scale), and dk and dq sum the
+    unscaled block products of it, as the f32 kernels do. lse is [B, Tq]
+    f32. The blocks default to the kernels' (`kernel_bwd_blocks`); given
+    block_q and block_k serve both walks. They need not divide the
+    lengths."""
     tq, c = q.shape[1], q.shape[2]
     tk = k.shape[1]
     scale = float(c) ** -0.5
     dt = q.dtype
+    fold = dt == torch.float32
+    (kv_bq, kv_bk), (q_bq, q_bk) = kernel_bwd_blocks(dt, c)
+    if block_q or block_k:
+        kv_bq = q_bq = block_q or kv_bq
+        kv_bk = q_bk = block_k or kv_bk
     f = lambda t: t.float()
     delta = (f(do) * f(o)).sum(dim=-1, keepdim=True)          # [B, Tq, 1]
     lse = lse.float()[..., None]
 
-    def block(q0, k0):
-        qb, dob = f(q[:, q0:q0 + block_q]), f(do[:, q0:q0 + block_q])
-        kb, vb = f(k[:, k0:k0 + block_k]), f(v[:, k0:k0 + block_k])
+    def block(q0, bq, k0, bk):
+        """The block's q, do and k rows in f32, and p and ds (·scale under
+        fold) rounded to dt."""
+        qb, dob = f(q[:, q0:q0 + bq]), f(do[:, q0:q0 + bq])
+        kb, vb = f(k[:, k0:k0 + bk]), f(v[:, k0:k0 + bk])
         s = torch.matmul(qb, kb.transpose(1, 2)) * scale
-        p = torch.exp(s - lse[:, q0:q0 + block_q])
+        p = torch.exp(s - lse[:, q0:q0 + bq])
         dp = torch.matmul(dob, vb.transpose(1, 2))
-        ds = p * (dp - delta[:, q0:q0 + block_q])
-        return qb, dob, kb, p, ds
+        ds = p * (dp - delta[:, q0:q0 + bq])
+        if fold:
+            ds = ds * scale
+        return qb, dob, kb, f(p.to(dt)), f(ds.to(dt))
 
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    for k0 in range(0, tk, block_k):
-        rows = k[:, k0:k0 + block_k].shape[1]
+    for k0 in range(0, tk, kv_bk):
+        rows = k[:, k0:k0 + kv_bk].shape[1]
         dk_acc = torch.zeros(k.shape[0], rows, c, device=q.device)
         dv_acc = torch.zeros_like(dk_acc)
-        for q0 in range(0, tq, block_q):
-            qb, dob, _, p, ds = block(q0, k0)
-            dv_acc = dv_acc + torch.matmul(f(p.to(dt)).transpose(1, 2), dob)
-            dk_acc = dk_acc + torch.matmul(f(ds.to(dt)).transpose(1, 2),
-                                           qb) * scale
-        dk[:, k0:k0 + block_k] = dk_acc.to(dt)
-        dv[:, k0:k0 + block_k] = dv_acc.to(dt)
+        for q0 in range(0, tq, kv_bq):
+            qb, dob, _, p, ds = block(q0, kv_bq, k0, kv_bk)
+            dv_acc = dv_acc + torch.matmul(p.transpose(1, 2), dob)
+            prod = torch.matmul(ds.transpose(1, 2), qb)
+            dk_acc = dk_acc + (prod if fold else prod * scale)
+        dk[:, k0:k0 + kv_bk] = dk_acc.to(dt)
+        dv[:, k0:k0 + kv_bk] = dv_acc.to(dt)
     dq = torch.empty_like(q)
-    for q0 in range(0, tq, block_q):
-        rows = q[:, q0:q0 + block_q].shape[1]
+    for q0 in range(0, tq, q_bq):
+        rows = q[:, q0:q0 + q_bq].shape[1]
         dq_acc = torch.zeros(q.shape[0], rows, c, device=q.device)
-        for k0 in range(0, tk, block_k):
-            _, _, kb, _, ds = block(q0, k0)
-            dq_acc = dq_acc + torch.matmul(f(ds.to(dt)), kb) * scale
-        dq[:, q0:q0 + block_q] = dq_acc.to(dt)
+        for k0 in range(0, tk, q_bk):
+            _, _, kb, _, ds = block(q0, q_bq, k0, q_bk)
+            prod = torch.matmul(ds, kb)
+            dq_acc = dq_acc + (prod if fold else prod * scale)
+        dq[:, q0:q0 + q_bq] = dq_acc.to(dt)
     return dq, dk, dv
 
 

@@ -6,6 +6,8 @@ torch's mode="nearest" (not "nearest-exact"). The functions also take
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -31,6 +33,13 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     if scale == 1:
         return x
     return x.repeat_interleave(scale, dim=-2).repeat_interleave(scale, dim=-1)
+
+
+def subpixel_enabled() -> bool:
+    """The switch of `Upsample`'s subpixel form, read at call time: on unless
+    CONTROL_GIC_SUBPIXEL is "0", which restores the direct nearest x2 then
+    3x3 conv (JAX `subpixel_enabled`)."""
+    return os.environ.get("CONTROL_GIC_SUBPIXEL", "1") != "0"
 
 
 def phase_conv_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -22,7 +22,7 @@ from torch import nn
 from ..models.cgic import CGIC, CGICConfig
 from ..models.discriminator import NLayerDiscriminator
 from ..models.lpips import LPIPS, with_bundled_lin_heads
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, use_fp32_pipes
 from .losses import LossConfig
 
 
@@ -129,8 +129,10 @@ def create_train_state(model_cfg: CGICConfig, train_cfg: TrainConfig,
                        seed: int = 0, lpips_net: str = "alex") -> TrainState:
     """A fresh state on `device` (CUDA unless asked otherwise; raises when
     CUDA is missing), every weight drawn from generators seeded by `seed`.
-    LPIPS gets the bundled lin heads and is frozen."""
+    LPIPS gets the bundled lin heads and is frozen. TF32 is turned off
+    (`use_fp32_pipes`): the recipe trains in float32."""
     dev = resolve_device(device)
+    use_fp32_pipes()
     gen = CGIC(model_cfg, generator=torch.Generator().manual_seed(seed))
     disc = NLayerDiscriminator(
         generator=torch.Generator().manual_seed(seed + 1))

@@ -17,3 +17,12 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "pass device='cpu' to run on the CPU")
     return dev
 
+
+def use_fp32_pipes() -> None:
+    """Turn TF32 off for float32 matrix products and cuDNN convolutions, so
+    that float32 on the card means float32 arithmetic (the FP32 pipes), as
+    in the JAX package and the training recipe. PyTorch's default runs f32
+    convolutions in TF32, which keeps about three decimal digits. The flags
+    touch only float32 work: bf16 paths compute the same as before."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

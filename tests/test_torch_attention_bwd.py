@@ -80,6 +80,34 @@ def test_backward_replay_matches_pallas_interpret(b, tq, tk, c, dtype):
         _close(g, _np(w), dtype)
 
 
+# (B, Tq, Tk, C, JAX block_q, JAX block_k): the JAX side takes blocks that
+# divide its lengths; the last case's lengths are no multiple of the f32
+# kernels' 32- and 64-row tiles
+F32_BLOCKING = [(1, 256, 256, 64, 256, 256), (1, 256, 512, 128, 256, 256),
+                (1, 128, 256, 256, 128, 256), (2, 100, 130, 64, 100, 130)]
+
+
+@pytest.mark.parametrize("b, tq, tk, c, jbq, jbk", F32_BLOCKING)
+def test_f32_replay_at_kernel_blocking_matches_pallas_interpret(
+        b, tq, tk, c, jbq, jbk):
+    """The replay at the f32 kernels' own tiles and summation order (ds
+    scaled before the products) against JAX's backward; both sides get
+    JAX's forward output and lse."""
+    assert tat.kernel_bwd_blocks(torch.float32, c) == ((64, 32), (32, 64))
+    (jq, jk, jv, jdo), (q, k, v, do) = _both(
+        _inputs(7 * c + tq + tk, b, tq, tk, c), "float32")
+    jo, jlse = jat.attention_flash_with_lse(jq, jk, jv, jbq, jbk,
+                                            interpret=True)
+    want = jat._flash_backward(jq, jk, jv, jo, jlse, jdo, jbq, jbk,
+                               interpret=True)
+    o = torch.from_numpy(_np(jo).copy())
+    lse = torch.from_numpy(_np(jlse)[..., 0].copy())
+    got = tat.flash_attention_backward_blocked_reference(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == tuple(w.shape)
+        _close(g, _np(w), "float32")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b, tq, tk, c", SHAPES)
 def test_dispatch_autograd_matches_jax_vjp(b, tq, tk, c, dtype):

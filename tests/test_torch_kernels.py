@@ -166,7 +166,10 @@ def test_flash_lse_matches_logsumexp(cuda, dtype, b, tq, tk, c):
                                           (1, 512, 4096, 128),
                                           (2, 4096, 4096, 512),
                                           (1, 4096, 4096, 256),
-                                          (3, 64, 65, 16)])
+                                          (3, 64, 65, 16),
+                                          (1, 4100, 4100, 512),
+                                          (2, 33, 4096, 512),
+                                          (1, 300, 4096, 384)])
 def test_flash_backward_matches_autograd_of_plain(cuda, dtype, b, tq, tk, c):
     q, k, v = _qkv(cuda, b, tq, tk, c, dtype, tq + 2 * tk + c)
     do = torch.randn(b, tq, c, device=cuda).to(dtype)
@@ -182,13 +185,19 @@ def test_flash_backward_matches_autograd_of_plain(cuda, dtype, b, tq, tk, c):
         assert _rel_err(g, w) <= OUT_TOL[dtype], name
 
 
-def test_flash_backward_is_bit_stable(cuda):
-    q, k, v = _qkv(cuda, 2, 1000, 1500, 64, torch.bfloat16, 9)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b, tq, tk, c", [(2, 4096, 4096, 512),
+                                          (2, 4096, 4096, 256),
+                                          (2, 1000, 1500, 64)])
+def test_flash_backward_is_bit_stable(cuda, dtype, b, tq, tk, c):
+    """No atomics: two launches of each backward kernel give equal bytes."""
+    q, k, v = _qkv(cuda, b, tq, tk, c, dtype, 9 + c)
     o, lse = A.flash_attention(q, k, v, return_lse=True)
     do = torch.randn_like(q)
     first = A.flash_attention_backward(q, k, v, o, lse, do)
     second = A.flash_attention_backward(q, k, v, o, lse, do)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_dispatch_under_grad_takes_the_lse_forward_and_backward(cuda):
@@ -226,6 +235,22 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         A.flash_attention_backward(q, k, v, o, lse, o.bfloat16())
     with pytest.raises(RuntimeError, match="gradient"):
         A.flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [528, 40])
+def test_flash_backward_refuses_head_dims_it_does_not_take(cuda, dtype, c):
+    """Above 512 or not a multiple of 16: both backward wrappers raise
+    before any launch."""
+    q, k, v = _qkv(cuda, 1, 64, 64, c, dtype, 4)
+    lse = torch.zeros(1, 64, device=cuda)
+    before = dict(A.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_attention_backward_dkdv(q, k, v, q, lse, q)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_attention_backward_dq(q, k, v, q, lse, lse)
+    assert A.KERNEL_LAUNCHES == before
 
 
 # ------------------------------------------------------- chained norm+conv

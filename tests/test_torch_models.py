@@ -176,3 +176,25 @@ def test_forward_round_trip_matches_jax(pair):
     np.testing.assert_allclose(nhwc(got), np.asarray(rec), atol=1e-4)
     np.testing.assert_allclose(genc.emb_loss.item(), float(enc.emb_loss),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("subpixel", ["0", "1"])
+def test_upsample_switch_matches_jax(pair, monkeypatch, subpixel):
+    """CONTROL_GIC_SUBPIXEL, read at call time by both packages: "0" runs
+    nearest x2 then the 3x3 conv (the subpixel path, patched to raise, is
+    not taken), "1" the subpixel form; same weights either way."""
+    from control_gic_tpu_torch.models import blocks as tblocks
+    monkeypatch.setenv("CONTROL_GIC_SUBPIXEL", subpixel)
+    if subpixel == "0":
+        def refuse(*args):
+            raise AssertionError("the subpixel form ran with the switch off")
+        monkeypatch.setattr(tblocks, "upsample2_conv3x3", refuse)
+    _, _, params, model = pair
+    x = np.random.default_rng(21).normal(size=(2, 16, 16, 64)).astype(
+        np.float32)
+    want = _jax_block(jblocks.Upsample, params["decoder"]["up_2_upsample"],
+                      jnp.asarray(x))
+    with torch.no_grad():
+        got = nhwc(model.get_submodule("decoder.up.2.upsample")(nchw(x)))
+    assert got.shape == want.shape == (2, 32, 32, 64)
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
