@@ -6,7 +6,8 @@ Phases, each printing a line of its own:
   1. device: the card's name and power limit (nvidia-smi); fails without CUDA;
   2. build: compiles every CUDA kernel of the main paths from this checkout,
      one nvcc per source, all started together, and fails if ptxas reports
-     a spill in an f32 flash backward instantiation;
+     a spill in an f32 flash backward instantiation or a bf16 chain
+     instantiation (chain_kernel_wgmma<8|128|256>), whose registers it logs;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with its time, the device time per launch
      (profiler), the plain version's, the library call's and the bound; the
@@ -118,7 +119,11 @@ CHAIN_SHAPES = [("gn", 512, 768, 128, 128, True, True, "bfloat16"),
                 ("sn", 512, 768, 256, 128, False, True, "bfloat16"),
                 ("sn", 512, 768, 128, 128, True, True, "bfloat16"),
                 ("sn", 512, 768, 128, 3, False, False, "bfloat16"),
-                ("gn", 256, 384, 256, 256, True, True, "float32")]
+                ("gn", 256, 384, 256, 256, True, True, "float32"),
+                # the tiled path's 768-px tile (encoder level 0, decoder
+                # level 0)
+                ("gn", 768, 768, 128, 128, True, True, "bfloat16"),
+                ("sn", 768, 768, 128, 128, True, True, "bfloat16")]
 # the training kernels' shapes (B, Tq, Tk, C, dtype): the 256x256 batch-2
 # training step's four attentions (C=512 in the decoder's mids, 256 in the
 # encoder's fine head), in the recipe's f32 and in bf16; then ragged
@@ -291,17 +296,27 @@ def phase_build() -> None:
         if len(f32) != 8 or any(st or ld for _, st, ld in f32.values()):
             raise AssertionError(f"f32 backward instantiations: expected 8 "
                                  f"without spills, got {f32}")
+    if "norm_conv_chain" in build.BUILD_LOG:
+        chain = {name: entry for name, entry in ptxas_entries(
+            build.BUILD_LOG["norm_conv_chain"][1]).items()
+            if name.startswith("chain_kernel_wgmma")}
+        log("ptxas bf16 chain", kernels=chain)
+        if len(chain) != 3 or any(st or ld for _, st, ld in chain.values()):
+            raise AssertionError(f"bf16 chain instantiations: expected 3 "
+                                 f"without spills, got {chain}")
 
 
 def ptxas_entries(report: str) -> dict:
     """kernel -> (registers, spill store bytes, spill load bytes) from a
-    ptxas -v report; the flash backward's templates by their short names
-    (flash_bwd_dq_f32_kernel<8>), others mangled."""
+    ptxas -v report; the flash backward's and the bf16 chain's templates by
+    their short names (flash_bwd_dq_f32_kernel<8>, chain_kernel_wgmma<128>),
+    others mangled."""
     import re
     out = {}
     for block in report.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
-        short = re.search(r"(flash_bwd_\w+?_kernel)ILi(\d+)E", name)
+        short = re.search(r"(flash_bwd_\w+?_kernel|chain_kernel_wgmma)"
+                          r"ILi(\d+)E", name)
         if short:
             name = f"{short.group(1)}<{short.group(2)}>"
         regs = re.search(r"Used (\d+) registers", block)
@@ -635,7 +650,7 @@ def chain_rows(dev: dict, peaks, gen) -> list:
                "plain_ms": plain_ms,
                "library_ms": lib_ms, "library": "F.conv2d, conv only",
                "bound_ms": bms, "bound_by": bound_by,
-               "card": dev["nvidia_smi"]}
+               "bound_share": bms / ms, "card": dev["nvidia_smi"]}
         log("kernel norm_conv_chain", **row)
         if not (err <= OUT_TOL[dt]
                 and (mom_err is None or mom_err <= MOM_TOL[dt])):
@@ -660,6 +675,9 @@ def moment_rows(dev: dict, peaks, gen) -> list:
         err = rel_err(got, want)
         ms = cuda_time_ms(lambda: FN.gn_moments_kernel(x))
         plain_ms = cuda_time_ms(lambda: FN.gn_moments_reference(x))
+        # the same per-channel statistics from one read of x
+        lib_ms = cuda_time_ms(lambda: torch.var_mean(x, dim=(2, 3),
+                                                     correction=0))
         bms, bound_by = bound_ms(3.0 * x.numel(), 2 * x.numel() + 8 * b * c,
                                  "float32", peaks)
         row = {"kernel": "gn_moments", "shape": [b, c, h, w],
@@ -667,8 +685,10 @@ def moment_rows(dev: dict, peaks, gen) -> list:
                "max_abs_err": (got - want).abs().max().item(), "ms": ms,
                "device_us": device_us_per_launch(
                    lambda: FN.gn_moments_kernel(x)),
-               "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms,
-               "bound_by": bound_by, "card": dev["nvidia_smi"]}
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch.var_mean over (H, W), correction=0",
+               "bound_ms": bms, "bound_by": bound_by,
+               "bound_share": bms / ms, "card": dev["nvidia_smi"]}
         log("kernel gn_moments", **row)
         if not err <= MOM_TOL["bfloat16"]:
             raise AssertionError(f"gn_moments disagrees with its plain "
@@ -774,14 +794,16 @@ def norm_conv_rows(dev: dict, peaks, gen) -> list:
                                      + 9 * cin * cout)
         bms, bound_by = bound_ms(2.0 * h * w * 9 * cin * cout, nbytes, dt,
                                  peaks)
+        ms = cuda_time_ms(kernel)
         row = {"kernel": "norm_conv", "form": form, "shape": [1, cin, h, w],
                "cout": cout, "dtype": dt, "rel_err": err,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
-               "tol": OUT_TOL[dt], "ms": cuda_time_ms(kernel),
+               "tol": OUT_TOL[dt], "ms": ms,
                "device_us": device_us_per_launch(kernel),
                "plain_ms": cuda_time_ms(plain), "library_ms": lib_ms,
                "library": "F.conv2d, conv only", "bound_ms": bms,
-               "bound_by": bound_by, "card": dev["nvidia_smi"]}
+               "bound_by": bound_by, "bound_share": bms / ms,
+               "card": dev["nvidia_smi"]}
         log("kernel norm_conv", **row)
         if not err <= OUT_TOL[dt]:
             raise AssertionError(f"norm_conv disagrees with its plain "
@@ -1031,6 +1053,8 @@ def log_profile(dev: dict, label: str, n: int, wall_us, busy, kernels,
         device_kernels_per_image=kernels / n,
         flash_share_of_device_time=shares["flash_fwd_"],
         chain_share_of_device_time=shares["chain_kernel"],
+        chain_device_ms_per_image=sum(
+            v for k, v in by_name.items() if "chain_kernel" in k) / n / 1e3,
         moments_share_of_device_time=shares["gn_moments_kernel"],
         apply_share_of_device_time=shares["apply_kernel"],
         top_kernels_ms_per_image={k: v / n / 1e3 for k, v in top},

@@ -43,8 +43,8 @@ SIGNATURES = {
     },
     "norm_conv_chain": {
         "cgic_norm_conv_chain": (_I, [_P] * 15 + [_I] * 9 + [_P]),
-        "cgic_norm_conv_chain_block_n": (_I, [_I]),
-        "cgic_norm_conv_chain_tiles": (_I, [_I, _I, _I]),
+        "cgic_norm_conv_chain_block_n": (_I, [_I, _I]),
+        "cgic_norm_conv_chain_tiles": (_I, [_I] * 4),
     },
     "gn_moments": {
         "cgic_gn_moments": (_I, [_P, _P, _I, _I, _L, _I, _P]),

@@ -9,11 +9,13 @@ rounded output, which `stats_from_moments` folds into the next norm's stats.
 
   - The chain (JAX `_kernel_chain`): `spatial_norm_conv_mom` /
     `group_norm_conv_mom`. Stats come from `gn_moments` when none are given;
-    then the CUDA kernel kernels/norm_conv_chain.cu (`chain_kernel`) for
-    CUDA tensors, or the plain versions `chain_reference` /
-    `plain_chain_reference` for CPU tensors (and inside
-    ops.plain_versions()). Each chained block's conv2 hands its moments to
-    the next block's conv1, which skips its own stats pass. Where a gradient
+    then the CUDA kernel kernels/norm_conv_chain.cu (`chain_kernel_wgmma`
+    in bf16, `chain_kernel` in f32) for CUDA tensors, or the plain versions
+    `chain_reference` / `plain_chain_reference` for CPU tensors (and inside
+    ops.plain_versions()). `chain_blocked_reference` replays the bf16
+    kernel's tiles, chunks and moment partials on the CPU. Each chained
+    block's conv2 hands its moments to the next block's conv1, which skips
+    its own stats pass. Where a gradient
     is needed the kernel runs inside `_ChainFn` (JAX `_chain_custom`), whose
     backward recomputes through the plain version and differentiates that.
   - The per-call op (JAX `_kernel`): `spatial_norm_conv` /
@@ -36,6 +38,7 @@ from __future__ import annotations
 import contextvars
 import ctypes
 import os
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -144,13 +147,131 @@ def _need(t: torch.Tensor, name: str, shape: Sequence[int],
         raise ValueError(f"{name}: needs a contiguous tensor")
 
 
+# The bf16 kernel's blocking (chain_kernel_wgmma in kernels/norm_conv_chain.cu),
+# mirrored here for the weight packing and the CPU replay: chunks of KC input
+# channels, tiles of TH rows x TW columns per block of BN output channels.
+KC = 32
+TW = 64
+
+
+def bf16_tile(cout: int) -> Tuple[int, int]:
+    """(BN, TH) of the bf16 kernel for this Cout (Cfg<BN> in the .cu)."""
+    if cout <= 8:
+        return 8, 8
+    return (128, 4) if cout <= 128 else (256, 2)
+
+
+def bf16_tiles(h: int, w: int, cout: int) -> int:
+    """Spatial tiles per image of the bf16 kernel (the C entry point
+    cgic_norm_conv_chain_tiles)."""
+    th = bf16_tile(cout)[1]
+    return -(-h // th) * -(-w // TW)
+
+
+def pack_weights(cw: torch.Tensor, dtype: torch.dtype, bn: int
+                 ) -> torch.Tensor:
+    """[Cout, Cin, 3, 3] conv weights -> the kernel's layout, zero-padded to
+    CoutP (a multiple of bn) output channels. float32 (the parity kernel):
+    [9 taps (dy, dx), Cin, CoutP]. bfloat16: [CoutP/bn, 9, Cin/KC, KC/8, bn,
+    8], one contiguous block of KC x bn per (N-block, tap, chunk): the
+    no-swizzle K-major wgmma operand (8 input channels of one output channel
+    in 16 bytes) that one bulk copy brings to shared memory."""
+    cout, cin = cw.shape[:2]
+    coutp = -(-cout // bn) * bn
+    w = torch.zeros(coutp, cin, 3, 3, dtype=dtype, device=cw.device)
+    w[:cout] = cw
+    if dtype == torch.float32:
+        return w.permute(2, 3, 1, 0).reshape(9, cin, coutp).contiguous()
+    # [nb, n, chunk, j, k, dy, dx] -> [nb, dy, dx, chunk, j, n, k]
+    w = w.reshape(coutp // bn, bn, cin // KC, KC // 8, 8, 3, 3)
+    return w.permute(0, 5, 6, 2, 3, 1, 4).reshape(
+        coutp // bn, 9, cin // KC, KC // 8, bn, 8).contiguous()
+
+
+def unpack_weights(wpk: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """The inverse of pack_weights: [Cout, Cin, 3, 3]."""
+    if wpk.dim() == 3:
+        return wpk.reshape(3, 3, cin, -1).permute(3, 2, 0, 1)[:cout]
+    nb, bn = wpk.shape[0], wpk.shape[4]
+    w = wpk.reshape(nb, 3, 3, cin // KC, KC // 8, bn, 8)
+    return w.permute(0, 5, 3, 4, 6, 1, 2).reshape(nb * bn, cin, 3, 3)[:cout]
+
+
+# Per-weight-version host work of the wrapper (packed weights, padded bias,
+# the modulation weights transposed to [Z, Cin]), made once per version of
+# the tensors it is built from:
+# key -> (their _version counters, weak references, value). An in-place
+# update (an optimizer step, load_state_dict) bumps _version and rebuilds;
+# an entry goes when one of its tensors is freed.
+_CACHE: dict = {}
+
+
+def _cached(tensors: Sequence[torch.Tensor], extra: tuple, make):
+    key = tuple(id(t) for t in tensors) + extra
+    versions = tuple(t._version for t in tensors)
+    hit = _CACHE.get(key)
+    if (hit is not None and hit[0] == versions
+            and all(r() is t for r, t in zip(hit[1], tensors))):
+        return hit[2]
+    value = make()
+    refs = [weakref.ref(t, lambda _r, key=key: _CACHE.pop(key, None))
+            for t in tensors]
+    _CACHE[key] = (versions, refs, value)
+    return value
+
+
+def chain_blocked_reference(x, cw, cb, gs, gb, stats: Stats, res=None, *,
+                            act_swish: bool = True, emit_mom: bool = True,
+                            zq_r=None, wy=None, by=None, wb=None, bb=None):
+    """CPU replay of the bf16 kernel's blocking (the SpatialNorm form when
+    zq_r is given): the activation once per element in f32, rounded to x's
+    dtype, zero outside the image AFTER the activation; the conv summed in
+    f32 chunk by chunk (KC input channels) and tap by tap over the tile grid
+    of bf16_tile(Cout) (the ragged edge computed on the zero halo and not
+    stored); bias, residual, rounding; the moments as per-tile partials
+    [B, n_tiles, 2, Cout] (tile = row of tiles * tiles per row + column)
+    summed over the tile axis, as the wrapper sums the kernel's. Returns
+    out, or (out, mom)."""
+    b, cin, h, w = x.shape
+    cout = cw.shape[0]
+    th = bf16_tile(cout)[1]
+    nty, ntx = -(-h // th), -(-w // TW)
+    hp, wp = nty * th, ntx * TW
+    if zq_r is not None:
+        a = spatial_norm_kernel_act(x, zq_r, gs, gb, wy, by, wb, bb,
+                                    act_swish, stats=stats)
+    else:
+        a = group_norm_kernel_act(x, gs, gb, act_swish, stats=stats)
+    ap = F.pad(a.float(), (1, 1 + wp - w, 1, 1 + hp - h))
+    wq = cw.to(x.dtype).float()
+    acc = torch.zeros(b, cout, hp, wp, dtype=torch.float32, device=x.device)
+    for c0 in range(0, cin, KC):
+        for t in range(9):
+            dy, dx = divmod(t, 3)
+            acc += torch.einsum("bkhw,ok->bohw",
+                                ap[:, c0:c0 + KC, dy:dy + hp, dx:dx + wp],
+                                wq[:, c0:c0 + KC, dy, dx])
+    out = acc[:, :, :h, :w] + _col(cb.float())
+    if res is not None:
+        out = out + res.float()
+    out = out.to(x.dtype)
+    if not emit_mom:
+        return out
+    of = F.pad(out.float(), (0, wp - w, 0, hp - h)).reshape(
+        b, cout, nty, th, ntx, TW)
+    part = torch.stack([of.sum(dim=(3, 5)), (of * of).sum(dim=(3, 5))], 1)
+    part = part.permute(0, 3, 4, 1, 2).reshape(b, nty * ntx, 2, cout)
+    return out, part.sum(dim=1)
+
+
 def _launch(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
             gs: torch.Tensor, gb: torch.Tensor, stats: Stats,
             res: Optional[torch.Tensor], emit_mom: bool, act_swish: bool,
             zq_r: Optional[torch.Tensor], wy, by, wb, bb, caller: str):
     """One launch of kernels/norm_conv_chain.cu, for the wrapper `caller`:
-    checks what the kernel takes, packs the weights, launches, raises on a
-    failed build or launch. Returns out, or (out, mom)."""
+    checks what the kernel takes, packs the weights (once per weight
+    version), launches, raises on a failed build or launch. Returns out, or
+    (out, mom)."""
     if not x.is_cuda:
         raise ValueError(f"{caller} launches a CUDA kernel and takes CUDA "
                          "tensors only; use the dispatch (spatial_norm_conv"
@@ -181,23 +302,30 @@ def _launch(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
         _need(zq_r, "zq_r", (b, 4, h, w), x.dtype, dev)
     from ..kernels import build
     lib = build.load("norm_conv_chain")
-    bn = lib.cgic_norm_conv_chain_block_n(cout)
+    code = _DTYPE_CODE[x.dtype]
+    bn = lib.cgic_norm_conv_chain_block_n(cout, code)
     coutp = -(-cout // bn) * bn
     f32 = lambda t: t.to(dev, torch.float32).contiguous()
-    # [Cout, Cin, 3, 3] -> [9 taps (dy, dx), Cin, CoutP], zero-padded along N
-    wpk = torch.zeros(9, cin, coutp, dtype=x.dtype, device=dev)
-    wpk[:, :, :cout] = cw.to(dev).permute(2, 3, 1, 0).reshape(9, cin, cout)
-    bias = torch.zeros(coutp, dtype=torch.float32, device=dev)
-    bias[:cout] = cb.to(dev, torch.float32)
+
+    def packed():
+        bias = torch.zeros(coutp, dtype=torch.float32, device=dev)
+        bias[:cout] = cb.to(dev, torch.float32)
+        return pack_weights(cw.to(dev), x.dtype, bn), bias
+
+    wpk, bias = _cached((cw, cb), (x.dtype, dev, bn), packed)
     # every tensor whose pointer the kernel gets stays referenced until the
-    # launch is enqueued
+    # launch is enqueued; f32 is no copy for the f32 parameters and stats
     norm = [f32(stats[0]), f32(stats[1]), f32(gs), f32(gb)]
     for t, name in zip(norm, ("mean_c", "rstd_c")):
         _need(t, name, (b, cin), torch.float32, dev)
-    mod = ([f32(wy.t()), f32(by), f32(wb.t()), f32(bb)] if modulate
-           else [None] * 4)
+    if modulate:
+        wyt, wbt = _cached((wy, wb), (dev,),
+                           lambda: (f32(wy.t()), f32(wb.t())))
+        mod = [wyt, f32(by), wbt, f32(bb)]
+    else:
+        mod = [None] * 4
     out = torch.empty(b, cout, h, w, dtype=x.dtype, device=dev)
-    n_tiles = lib.cgic_norm_conv_chain_tiles(h, w, cout)
+    n_tiles = lib.cgic_norm_conv_chain_tiles(h, w, cout, code)
     part = (torch.empty(b, n_tiles, 2, cout, dtype=torch.float32, device=dev)
             if emit_mom else None)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
@@ -208,7 +336,7 @@ def _launch(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
             ptr(bias), ptr(res), ptr(out), ptr(part), ctypes.c_int(b),
             ctypes.c_int(cin),
             ctypes.c_int(cout), ctypes.c_int(coutp), ctypes.c_int(h),
-            ctypes.c_int(w), ctypes.c_int(_DTYPE_CODE[x.dtype]),
+            ctypes.c_int(w), ctypes.c_int(code),
             ctypes.c_int(int(modulate)), ctypes.c_int(int(act_swish)),
             ctypes.c_void_p(stream))
     build.check(lib, rc, "norm_conv_chain")

@@ -294,7 +294,17 @@ CHAIN_CONFIGS = list(itertools.product([True, False], [False, True],
     (1, 128, 256, 16, 32),
     (2, 128, 3, 32, 32),       # conv_out
     (1, 128, 128, 13, 40),     # H and W not multiples of the tile
-    (1, 64, 3, 9, 20)])
+    (1, 64, 3, 9, 20),
+    # the bf16 tile's edges (64 columns; 4 rows at Cout 128, 2 at 256, 8
+    # at Cout <= 8): W = TW -+ 1, H = TH +- 1, Cout = 256 as one CTA of N,
+    # Cout = 512 as two, B = 2
+    (1, 128, 128, 5, 63),
+    (1, 128, 128, 3, 65),
+    (2, 256, 256, 3, 64),
+    (1, 256, 256, 1, 129),
+    (2, 128, 3, 9, 65),
+    (1, 256, 4, 7, 63),
+    (1, 512, 512, 5, 65)])
 def test_chain_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w):
     a = _chain_inputs(cuda, b, cin, cout, h, w, dtype, cin + cout + h + w)
     mom_in = FN.gn_moments_reference(a["x"])
@@ -370,11 +380,46 @@ def test_moment_gradient_matches_plain(cuda):
     assert _rel_err(got, want) <= 1e-5
 
 
-def test_chain_kernel_is_bit_stable(cuda):
-    a = _chain_inputs(cuda, 1, 128, 128, 64, 64, torch.bfloat16, 7)
+@pytest.mark.parametrize("cin, cout, h, w", [(128, 128, 64, 64),
+                                           (256, 256, 34, 96),
+                                           (128, 3, 40, 130)])
+def test_chain_kernel_is_bit_stable(cuda, cin, cout, h, w):
+    a = _chain_inputs(cuda, 1, cin, cout, h, w, torch.bfloat16, 7)
     out1, mom1 = _chain(a, True, True, None, True)
     out2, mom2 = _chain(a, True, True, None, True)
     assert torch.equal(out1, out2) and torch.equal(mom1, mom2)
+
+
+@pytest.mark.parametrize("h, w, cout", [(512, 768, 128), (256, 384, 256),
+                                        (512, 768, 3), (768, 768, 3),
+                                        (192, 192, 512), (13, 65, 128),
+                                        (3, 130, 256), (10, 65, 4)])
+def test_tile_count_matches_the_mirror(cuda, h, w, cout):
+    """The bf16 kernel's block of N and tile grid (the moment partials'
+    second dim) as ops/norm_conv.py mirrors them for the packing and the
+    CPU replay."""
+    from control_gic_tpu_torch.kernels import build
+    lib = build.load("norm_conv_chain")
+    assert lib.cgic_norm_conv_chain_block_n(cout, 1) == NC.bf16_tile(cout)[0]
+    assert lib.cgic_norm_conv_chain_tiles(h, w, cout, 1) == NC.bf16_tiles(
+        h, w, cout)
+
+
+@pytest.mark.parametrize("modulate", [True, False], ids=["sn", "gn"])
+def test_in_place_weight_update_reaches_the_kernel(cuda, modulate):
+    """The wrapper packs the weights once per version: an in-place update
+    of cw (and of the modulation weights), as an optimizer step or
+    load_state_dict makes, changes the next launch's output."""
+    a = _chain_inputs(cuda, 1, 128, 128, 16, 64, torch.bfloat16, 41)
+    first = _chain(a, modulate, False, None, False)
+    with torch.no_grad():
+        a["cw"].mul_(-2.0)
+        a["wy"].add_(0.5)
+    got = _chain(a, modulate, False, None, False)
+    with plain_versions():
+        want = _chain(a, modulate, False, None, False)
+    assert not torch.equal(first, got)
+    assert _rel_err(got, want) <= OUT_TOL[torch.bfloat16]
 
 
 def test_chain_kernel_refuses_what_it_does_not_take(cuda):
@@ -456,7 +501,10 @@ def _norm_conv_call(a, modulate):
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("b, cin, cout, h, w", [
     (1, 256, 256, 24, 32), (2, 128, 4, 32, 48), (1, 128, 3, 13, 40),
-    (1, 512, 512, 16, 16), (1, 256, 128, 48, 16)])
+    (1, 512, 512, 16, 16), (1, 256, 128, 48, 16),
+    # the bf16 tile's edges, as in test_chain_kernel_matches_plain
+    (1, 512, 512, 3, 65), (2, 256, 256, 5, 63), (1, 128, 3, 9, 64),
+    (2, 128, 128, 5, 129)])
 def test_norm_conv_call_matches_plain(cuda, modulate, dtype, b, cin, cout, h,
                                       w):
     """The per-call op (JAX `_kernel`): the moment pass, then the chain
