@@ -6,8 +6,9 @@ Phases, each printing a line of its own:
   1. device: the card's name and power limit (nvidia-smi); fails without CUDA;
   2. build: compiles every CUDA kernel of the main paths from this checkout,
      one nvcc per source, all started together, and fails if ptxas reports
-     a spill in an f32 flash backward instantiation or a bf16 chain
-     instantiation (chain_kernel_wgmma<8|128|256>), whose registers it logs;
+     a spill in a flash backward instantiation (f32 or bf16) or a bf16
+     chain instantiation (chain_kernel_wgmma<8|128|256>), whose registers it
+     logs;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with its time, the device time per launch
      (profiler), the plain version's, the library call's and the bound; the
@@ -30,8 +31,9 @@ Phases, each printing a line of its own:
      ops.plain_versions(), 3 steps with exact launch counts per step, one
      eval step, a checkpoint save and restore, a profile of one step (device
      ms of the flash backward kernels, busy time, idle share); then 2
-     bf16 steps with the same launch checks, and the train CLI on PNGs when
-     PIL is installed;
+     bf16 steps with the same launch checks, their first step's gradients
+     against the plain versions (logged) and the same profile of one step,
+     and the train CLI on PNGs when PIL is installed;
   9. 256x256 with CONTROL_GIC_FUSED_NORM=1: the phase-4 round trip with the
      SpatialNorm apply kernel, launch counts and a profile;
  10. high-res tiled codec: cli/infer_highres.main on a 1356x2040 PNG (the
@@ -290,12 +292,19 @@ def phase_build() -> None:
         print(f"[ptxas {name}] {secs:.2f} s\n{report.strip()}", flush=True)
     log("build", seconds=round(time.perf_counter() - t0, 3), libraries=paths)
     if "flash_attn_bwd" in build.BUILD_LOG:
-        f32 = {name: entry for name, entry in ptxas_entries(
-            build.BUILD_LOG["flash_attn_bwd"][1]).items() if "_f32_" in name}
-        log("ptxas f32 backward", kernels=f32)
-        if len(f32) != 8 or any(st or ld for _, st, ld in f32.values()):
-            raise AssertionError(f"f32 backward instantiations: expected 8 "
-                                 f"without spills, got {f32}")
+        report = build.BUILD_LOG["flash_attn_bwd"][1]
+        entries = ptxas_entries(report)
+        for dt in ("f32", "bf16"):
+            found = {name: entry for name, entry in entries.items()
+                     if f"_{dt}_" in name}
+            log(f"ptxas {dt} backward", kernels=found,
+                serialized=[line.strip() for line in report.splitlines()
+                            if "serializ" in line and f"_{dt}_" in line])
+            if len(found) != 8 or any(st or ld for _, st, ld in
+                                      found.values()):
+                raise AssertionError(f"{dt} backward instantiations: "
+                                     f"expected 8 without spills, got "
+                                     f"{found}")
     if "norm_conv_chain" in build.BUILD_LOG:
         chain = {name: entry for name, entry in ptxas_entries(
             build.BUILD_LOG["norm_conv_chain"][1]).items()
@@ -509,6 +518,10 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
                    "card": dev["nvidia_smi"]}
             if name == "flash_attn_fwd_lse":
                 row.update(key_splits=flash_splits(b, tq, tk, c, dt))
+            else:   # the whole attention (lse forward + dk/dv + dq) beside
+                # SDPA's forward + backward, which computes the same
+                row.update(attention_fwd_bwd_ms=sum(ms.values()),
+                           attention_vs_library=sum(ms.values()) / lib_fb)
             log(f"kernel {name}", **row)
             if not err <= tol:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -1437,6 +1450,29 @@ def generator_grads(trainer, state, x):
             for p, g in zip(params, grads)], enc
 
 
+def step_profile(trainer, state, x) -> dict:
+    """torch.profiler over one training step: host wall and device busy
+    time, idle share, the flash kernels' shares of device time, the
+    backward kernels' device ms (their bf16 and f32 instantiations by one
+    name) and the top kernels."""
+    wall_us, busy, kernels, by_name = device_profile(
+        lambda: trainer.train_step(state, x))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    bwd_keys = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")
+    shares = _shares(by_name, ("flash_fwd_",) + bwd_keys) if by_name else {}
+    bwd_ms = {key: sum(v for k, v in by_name.items() if key in k) / 1e3
+              for key in bwd_keys}
+    return dict(
+        profile_wall_ms=wall_us / 1e3,
+        device_busy_ms=None if busy is None else busy / 1e3,
+        device_idle_share=None if busy is None else 1.0 - busy / wall_us,
+        device_kernels=kernels, flash_shares_of_device_time=shares,
+        backward_device_ms_per_step=bwd_ms,
+        backward_share_of_device_busy=None if not busy
+        else sum(bwd_ms.values()) * 1e3 / busy,
+        top_kernels_ms={k: v / 1e3 for k, v in top})
+
+
 def phase_train(dev: dict, workdir: str) -> dict:
     """Phase 8: the training step at full width, 256x256, batch 2. Returns
     the kernel launches of the 3 f32 steps."""
@@ -1531,14 +1567,6 @@ def phase_train(dev: dict, workdir: str) -> dict:
     if not same:
         raise AssertionError("the restored checkpoint differs from the state")
 
-    wall_us, busy, kernels, by_name = device_profile(
-        lambda: trainer.train_step(state, batches[0]))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    # the bf16 and f32 instantiations of each backward kernel by one name
-    bwd_keys = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")
-    shares = _shares(by_name, ("flash_fwd_",) + bwd_keys) if by_name else {}
-    bwd_ms = {key: sum(v for k, v in by_name.items() if key in k) / 1e3
-              for key in bwd_keys}
     log("train f32", config="CGICConfig(dtype=float32), 256x256, batch 2",
         params=sum(p.numel() for p in state.gen.parameters()),
         steps=TRAIN_STEPS, step_ms=rec.ms,
@@ -1547,29 +1575,37 @@ def phase_train(dev: dict, workdir: str) -> dict:
         metrics_last=rec.metrics[-1], eval_metrics=vm,
         params_changed=changed, checkpoint_step=saved,
         checkpoint_restored_equal=same, peak_mem_gib=peak_gib,
-        profile_wall_ms=wall_us / 1e3,
-        device_busy_ms=None if busy is None else busy / 1e3,
-        device_idle_share=None if busy is None else 1.0 - busy / wall_us,
-        device_kernels=kernels, flash_shares_of_device_time=shares,
-        backward_device_ms_per_step=bwd_ms,
-        backward_share_of_device_busy=None if not busy
-        else sum(bwd_ms.values()) * 1e3 / busy,
-        top_kernels_ms={k: v / 1e3 for k, v in top},
+        **step_profile(trainer, state, batches[0]),
         card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
     del state, trainer, rec
     torch.cuda.empty_cache()
 
-    # 2 steps in bf16, same launch checks
+    # 2 steps in bf16 (the bf16 backward kernels' path), same launch
+    # checks; the first step's generator gradients against the plain
+    # versions are logged for information (bf16 rounds at other points in
+    # the plain attention), then a profile of one step
+    t0 = time.perf_counter()
     cfg16 = CGICConfig(dtype="bfloat16")
-    rec16 = StepRecorder(Trainer(cfg16, tcfg))
+    trainer16 = Trainer(cfg16, tcfg)
+    rec16 = StepRecorder(trainer16)
     state16 = create_train_state(cfg16, tcfg, device="cuda", seed=0)
+    batches16 = train_batches(200, 2)
+    g_k, _ = generator_grads(trainer16, state16, batches16[0])
+    with plain_versions():
+        g_p, _ = generator_grads(trainer16, state16, batches16[0])
+    errs16 = sorted(((n, rel(a.float(), b.float())) for n, a, b in
+                     zip(names, g_k, g_p)), key=lambda kv: -kv[1])[:5]
+    del g_k, g_p
     train_cli.train_loop(_loop_args(workdir, 2, "bf16"), rec16, state16,
-                         iter(train_batches(200, 2)))
+                         iter(batches16))
     _check_steps(rec16, "bf16")
-    log("train bf16", steps=2, step_ms=rec16.ms,
-        launches_per_step=rec16.launches[0], metrics_last=rec16.metrics[-1],
-        card=dev["nvidia_smi"])
-    del state16, rec16
+    log("train bf16", config="CGICConfig(dtype=bfloat16), 256x256, batch 2",
+        steps=2, step_ms=rec16.ms, launches_per_step=rec16.launches[0],
+        metrics_last=rec16.metrics[-1],
+        gradients_vs_plain_worst_rel_errs=dict(errs16),
+        **step_profile(trainer16, state16, batches16[0]),
+        card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
+    del state16, rec16, trainer16
     torch.cuda.empty_cache()
     phase_train_cli(workdir)
     return launches

@@ -21,19 +21,66 @@
 //
 // Shapes: q, o, do [B, Tq, C]; k, v [B, Tk, C]; lse [B, Tq] f32; all
 // contiguous; C a multiple of 16, at most 512. Tq and Tk are arbitrary: rows
-// past Tq and keys past Tk are zero-filled on load and their p is set to 0.
+// past Tq and keys past Tk are zero-filled on load and their p is set to 0
+// where it would reach a stored gradient.
 //
 // What bounds it on an H100: operations. At the training shape (B = 2,
 // Tq = Tk = 4096, C = 512) the two kernels do 7 matrix products of
 // 2*Tq*Tk*C flops each over some 40 MB of operands.
 //
-// bf16 path (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), the first simple
-// design: bf16 products on the tensor cores through nvcuda::wmma (16x16x16,
-// f32 accumulation) from shared memory, with the f32 accumulators of dk and
-// dv (or dq) in shared memory; p and ds are rounded to bf16 before their
-// products, and each block product of dk and dq is scaled once, as in JAX.
-// Tiles: 16 keys a CTA and 32 query rows a step (dk/dv), 32 query rows a CTA
-// and 32 keys a step (dq).
+// bf16 path (flash_bwd_dkdv_bf16_kernel<NB>, flash_bwd_dq_bf16_kernel<NB>),
+// written for Hopper (sm_90a). NB = C rounded up to 128, in 64-channel boxes.
+// A CTA has 256 threads, two warpgroups, and no producer: ptxas allots a
+// wgmma kernel's registers by warpgroup, so a producer warp (288 threads)
+// or warpgroup (384) leaves 168 a thread, too few for 128 accumulators
+// beside the S or dP tile (it spilled and serialised the wgmma); 256
+// threads leave 255.
+//  - Roles. The dk/dv kernel owns BK keys (K and V stay in shared memory for
+//    the launch) and walks the queries 64 rows a step. Warpgroup 0
+//    builds S = Q K^T over the whole of C, turns it into p and owns dK;
+//    warpgroup 1 builds dP = dO V^T, turns it into ds and owns dV. Each
+//    reduces over the full C, so no partial sums are exchanged; p crosses to
+//    warpgroup 1 once, in f32, through a thread-major buffer (ds needs the
+//    unrounded p). p^T and ds^T are stored as bf16, which is where JAX
+//    rounds them, and feed the accumulating products from shared memory.
+//    The dq kernel owns 64 query rows (Q and dO stay) and walks the keys BK
+//    at a time: warpgroup 0 builds S and p, warpgroup 1 dP and ds, and both
+//    then accumulate half of dQ's channels each.
+//  - Registers. The accumulating products run swapped, so that wgmma's M
+//    (at least 64) runs over channels: dV^T = dO^T p^T, dK^T = Q^T ds^T and
+//    dQ^T = K^T ds^T, with dO, Q and K read in place as MN-major ("transposed")
+//    A operands of their 128-byte swizzled boxes, and p^T, ds^T as K-major B
+//    operands. A 64-channel tile of dK^T (or dV^T) over BK keys is BK/2
+//    registers a thread, so a warpgroup holds the whole of C for BK =
+//    16384 / CP keys: BK = 32 at C > 256 (128 accumulator registers, 256 CTAs
+//    at the training shape), 64 below. dQ^T is 64 query rows, NB/2 tiles a
+//    warpgroup: 128 registers at C = 512. dK, dV and dQ never leave
+//    registers until the epilogue, which stages them as bf16 through shared
+//    memory for coalesced stores. The scale of dk and dq is applied once
+//    there, not to each block product as JAX does; the f32 sums differ only
+//    in order (ops/attention.py's replay follows it).
+//  - Loads. Two rings of 64-channel boxes arrive by TMA (cp.async.bulk.tensor,
+//    3-D maps over [B, T, C], so rows past T and channels past C read as
+//    zeros, never the next batch element), each slot with a full and an
+//    empty mbarrier: Q and dO for dk/dv, K and V for dq; a ring holds at
+//    least a step's NB boxes. The warpgroup that reads a box last releases
+//    it as soon as its product is done (wait_group 1, the next box's product
+//    still running): its 128 threads arrive on the slot's empty barrier,
+//    and after the last product they wait for each other and its leader
+//    thread loads the box R later into the slot by a predicated copy. The S
+//    and dP products run a group a box, each issued once its box is in, so
+//    the first boxes' products overlap the last ones' loads. A spin-wait
+//    between products of one group, or a wait or a one-thread branch
+//    between the accumulating products' groups in flight, made ptxas
+//    serialise every wgmma of the kernel (C7520, "divergent path").
+//  - Hand-offs between the warpgroups are named barriers (bar.arrive /
+//    bar.sync), after fence.proxy.async for what wgmma reads. Every wgmma
+//    is issued from code both warpgroups run (only the operands differ):
+//    products inside a warpgroup-dependent branch were serialised.
+//  - Shared memory at C = 512: dk/dv K and V 64 KB, rings 2 x 8 x 8 KB,
+//    p^T (two parities), ds^T and the p exchange 20 KB: 212 KB; dq Q and dO
+//    128 KB, rings 2 x 10 x 4 KB, ds and the exchange 12 KB: 220 KB. One
+//    CTA an SM.
 //
 // f32 path (flash_bwd_dkdv_f32_kernel<NG>, flash_bwd_dq_f32_kernel<NG>), the
 // training recipe's dtype: FFMA on the FP32 pipes, never TF32. Both kernels
@@ -68,191 +115,35 @@
 //    a thread at C = 512 for dk/dv.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
-// with ctypes (control_gic_tpu_torch/kernels/build.py).
+// with ctypes (control_gic_tpu_torch/kernels/build.py). The TMA descriptors
+// are encoded on the host through cudaGetDriverEntryPoint(ByVersion), so the
+// library needs no -lcuda.
 
+#include <cuda.h>          // CUtensorMap and its enums; the driver is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxC = 512;
-
-// ---------------------------------------------------------------- bf16 path
-
-struct Bf16Cfg {
-  static constexpr int KV_BK = 16;   // dk/dv kernel: keys per CTA
-  static constexpr int KV_BQ = 32;   //               query rows per step
-  static constexpr int Q_BQ = 32;    // dq kernel: query rows per CTA
-  static constexpr int Q_BK = 32;    //            keys per step
-  static constexpr int PAD = 8;      // row padding (elements) of the operand tiles
-};
-
-__host__ __device__ inline size_t align_up(size_t x, size_t a) {
-  return (x + a - 1) / a * a;
-}
-
-// Dynamic shared memory of one CTA, in bytes from the base; row strides in
-// elements. Every region starts on 128 bytes (wmma wants 32).
-//   own:   the block this CTA keeps for the whole launch (K and V of the dk/dv
-//          kernel, q and do of the dq kernel), 2 x [rows_own, ld] bf16
-//   step:  the block loaded at each step, 2 x [rows_step, ld] bf16
-//   s, dp: the [BQ, BK] scores and do v^T, f32
-//   p, ds: p and ds rounded to bf16
-//   acc:   the f32 accumulators, n_acc x [rows_own, ldo]
-//   lse, delta: per query row of the block that holds queries, f32
-struct Layout {
-  size_t own, step, s, dp, p, ds, acc, lse, delta, total;
-  int ld, lds, ldp, ldo;
-};
-
-__host__ __device__ inline Layout make_layout(int C, int rows_own, int rows_step, int BQ, int BK,
-                                              int n_acc) {
-  Layout L;
-  L.ld = C + Bf16Cfg::PAD;
-  L.lds = BK + 4;
-  L.ldp = BK + 8;
-  L.ldo = C + 4;
-  size_t off = 0;
-  L.own = off;
-  off = align_up(off + sizeof(bf16) * 2 * rows_own * L.ld, 128);
-  L.step = off;
-  off = align_up(off + sizeof(bf16) * 2 * rows_step * L.ld, 128);
-  L.s = off;
-  off = align_up(off + sizeof(float) * BQ * L.lds, 128);
-  L.dp = off;
-  off = align_up(off + sizeof(float) * BQ * L.lds, 128);
-  L.p = off;
-  off = align_up(off + sizeof(bf16) * BQ * L.ldp, 128);
-  L.ds = off;
-  off = align_up(off + sizeof(bf16) * BQ * L.ldp, 128);
-  L.acc = off;
-  off = align_up(off + sizeof(float) * n_acc * rows_own * L.ldo, 128);
-  L.lse = off;
-  off += sizeof(float) * BQ;
-  L.delta = off;
-  off += sizeof(float) * BQ;
-  L.total = align_up(off, 128);
-  return L;
-}
-
-__host__ __device__ inline Layout dkdv_layout(int C) {
-  return make_layout(C, Bf16Cfg::KV_BK, Bf16Cfg::KV_BQ, Bf16Cfg::KV_BQ, Bf16Cfg::KV_BK, 2);
-}
-
-__host__ __device__ inline Layout dq_layout(int C) {
-  return make_layout(C, Bf16Cfg::Q_BQ, Bf16Cfg::Q_BK, Bf16Cfg::Q_BQ, Bf16Cfg::Q_BK, 1);
-}
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block can have
+constexpr float kLog2e = 1.4426950408889634f;
+// a pipeline wait that never completes traps (a launch error) instead of
+// hanging the card
+constexpr uint32_t kSpinLimit = 1u << 26;
 
 __device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
 __device__ inline float to_float(float x) { return x; }
 
-// Copy `rows` rows of C elements from global (row stride C) into shared memory
-// (row stride ld); rows at or past `valid` are zero-filled.
-__device__ void load_rows(bf16* __restrict__ dst, int ld, const bf16* __restrict__ src, int rows,
-                          int valid, int C) {
-  const int chunks = C / 8;   // 16 bytes each
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * C + c);
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) = val;
-  }
-}
-
-// S[BQ, BK] = A[BQ, C] B[BK, C]^T and DP[BQ, BK] = A2[BQ, C] B2[BK, C]^T (f32),
-// both row-major with row stride ld: q k^T and do v^T.
-template <int BQ, int BK>
-__device__ void scores(const bf16* A, const bf16* B, const bf16* A2, const bf16* B2, int ld,
-                       float* S, float* DP, int lds, int C) {
-  constexpr int tn = BK / 16;
-  constexpr int tiles = (BQ / 16) * tn;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < 2 * tiles; t += kWarps) {
-    const bool second = t >= tiles;
-    const int u = second ? t - tiles : t;
-    const int i = u / tn, j = u % tn;
-    const bf16* a_ptr = (second ? A2 : A) + i * 16 * ld;
-    const bf16* b_ptr = (second ? B2 : B) + j * 16 * ld;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < C; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, a_ptr + kk, ld);
-      wmma::load_matrix_sync(b, b_ptr + kk, ld);   // B^T
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync((second ? DP : S) + i * 16 * lds + j * 16, acc, lds,
-                            wmma::mem_row_major);
-  }
-}
-
-// Acc[M, C] += scale * (op(A)[M, K] B[K, C]) for the output tiles t0, t0 + step, ...
-// of the M x C grid of 16x16 tiles. op(A) = A, stored [M, K] row-major, or
-// (kTransA) A^T with A stored [K, M] row-major; row stride lda. B is [K, C]
-// row-major with row stride ldb; Acc f32 with row stride ldo. The block
-// product is summed in a fragment of its own and then scaled and added, as
-// JAX adds dot(...) * scale to its accumulator.
-template <bool kTransA>
-__device__ void mma_acc(const bf16* A, int lda, const bf16* B, int ldb, float* Acc, int ldo,
-                        int M, int K, int C, float scale, int t0, int step) {
-  using LayoutA = typename std::conditional<kTransA, wmma::col_major, wmma::row_major>::type;
-  const int tn = C / 16;
-  const int tiles = (M / 16) * tn;
-  for (int t = t0; t < tiles; t += step) {
-    const int i = t / tn, j = t % tn;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> prod, acc;
-    wmma::fill_fragment(prod, 0.0f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      const bf16* pa = kTransA ? A + (size_t)kk * lda + i * 16 : A + (size_t)i * 16 * lda + kk;
-      wmma::load_matrix_sync(a, pa, lda);
-      wmma::load_matrix_sync(b, B + (size_t)kk * ldb + j * 16, ldb);
-      wmma::mma_sync(prod, a, b, prod);
-    }
-    float* po = Acc + (size_t)i * 16 * ldo + j * 16;
-    wmma::load_matrix_sync(acc, po, ldo, wmma::mem_row_major);
-    for (int e = 0; e < acc.num_elements; ++e) acc.x[e] += prod.x[e] * scale;
-    wmma::store_matrix_sync(po, acc, ldo, wmma::mem_row_major);
-  }
-}
-
-// p = exp(s * scale - lse) and ds = p * (dp - delta) over the [BQ, BK] block,
-// rounded into sP / sDS, with p = 0 on keys past kvalid (and on query rows
-// past the end, whose lse is +inf).
-template <int BQ, int BK>
-__device__ void probs(const float* S, const float* DP, bf16* sP, bf16* sDS, const Layout& L,
-                      const float* sLse, const float* sDelta, int kvalid, float scale) {
-  for (int idx = threadIdx.x; idx < BQ * BK; idx += blockDim.x) {
-    const int r = idx / BK;
-    const int c = idx - r * BK;
-    const float p = (c < kvalid) ? expf(S[r * L.lds + c] * scale - sLse[r]) : 0.0f;
-    const float ds = p * (DP[r * L.lds + c] - sDelta[r]);
-    sP[r * L.ldp + c] = __float2bfloat16(p);
-    sDS[r * L.ldp + c] = __float2bfloat16(ds);
-  }
-}
-
-// Per query row of the block at q0: lse (+inf past Tq, so that p = 0) and delta.
-__device__ void load_row_stats(float* sLse, float* sDelta, const float* lse, const float* delta,
-                               int BQ, int qvalid) {
-  for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
-    sLse[r] = (r < qvalid) ? lse[r] : INFINITY;
-    sDelta[r] = (r < qvalid) ? delta[r] : 0.0f;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // delta[row] = sum_c do[row, c] * o[row, c] in f32, a warp per row, lanes
@@ -272,127 +163,543 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = s;
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int C,
-                      float scale) {
-  constexpr int BK = Bf16Cfg::KV_BK, BQ = Bf16Cfg::KV_BQ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = dkdv_layout(C);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.own);
-  bf16* sV = sK + BK * L.ld;
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.step);
-  bf16* sDO = sQ + BQ * L.ld;
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L.p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L.ds);
-  float* sdK = reinterpret_cast<float*>(smem + L.acc);
-  float* sdV = sdK + BK * L.ldo;
-  float* sLse = reinterpret_cast<float*>(smem + L.lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L.delta);
+// ---------------------------------------------------------------- bf16 path
 
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int kvalid = min(BK, Tk - k0);
-  load_rows(sK, L.ld, k + ((size_t)b * Tk + k0) * C, BK, kvalid, C);
-  load_rows(sV, L.ld, v + ((size_t)b * Tk + k0) * C, BK, kvalid, C);
-  for (int idx = threadIdx.x; idx < 2 * BK * L.ldo; idx += blockDim.x) sdK[idx] = 0.0f;
-
-  const bf16* qb = q + (size_t)b * Tq * C;
-  const bf16* db = dout + (size_t)b * Tq * C;
-  for (int q0 = 0; q0 < Tq; q0 += BQ) {
-    const int qvalid = min(BQ, Tq - q0);
-    load_rows(sQ, L.ld, qb + (size_t)q0 * C, BQ, qvalid, C);
-    load_rows(sDO, L.ld, db + (size_t)q0 * C, BQ, qvalid, C);
-    load_row_stats(sLse, sDelta, lse + (size_t)b * Tq + q0, delta + (size_t)b * Tq + q0, BQ,
-                   qvalid);
-    __syncthreads();
-    scores<BQ, BK>(sQ, sK, sDO, sV, L.ld, sS, sDP, L.lds, C);
-    __syncthreads();
-    probs<BQ, BK>(sS, sDP, sP, sDS, L, sLse, sDelta, kvalid, scale);
-    __syncthreads();
-    // dv += p^T do and dk += (ds^T q) * scale; the warps split between the two
-    const int warp = threadIdx.x / 32;
-    if (warp < kWarps / 2) {
-      mma_acc<true>(sP, L.ldp, sDO, L.ld, sdV, L.ldo, BK, BQ, C, 1.0f, warp, kWarps / 2);
-    } else {
-      mma_acc<true>(sDS, L.ldp, sQ, L.ld, sdK, L.ldo, BK, BQ, C, scale, warp - kWarps / 2,
-                    kWarps / 2);
-    }
-    __syncthreads();
-  }
-
-  bf16* dkb = dk + ((size_t)b * Tk + k0) * C;
-  bf16* dvb = dv + ((size_t)b * Tk + k0) * C;
-  for (int idx = threadIdx.x; idx < kvalid * C; idx += blockDim.x) {
-    const int r = idx / C;
-    const int c = idx - r * C;
-    dkb[(size_t)r * C + c] = __float2bfloat16(sdK[r * L.ldo + c]);
-    dvb[(size_t)r * C + c] = __float2bfloat16(sdV[r * L.ldo + c]);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > kSpinLimit) __trap();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int Tq, int Tk, int C, float scale) {
-  constexpr int BQ = Bf16Cfg::Q_BQ, BK = Bf16Cfg::Q_BK;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = dq_layout(C);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.own);
-  bf16* sDO = sQ + BQ * L.ld;
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.step);
-  bf16* sV = sK + BK * L.ld;
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L.p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L.ds);
-  float* sdQ = reinterpret_cast<float*>(smem + L.acc);
-  float* sLse = reinterpret_cast<float*>(smem + L.lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L.delta);
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int qvalid = min(BQ, Tq - q0);
-  load_rows(sQ, L.ld, q + ((size_t)b * Tq + q0) * C, BQ, qvalid, C);
-  load_rows(sDO, L.ld, dout + ((size_t)b * Tq + q0) * C, BQ, qvalid, C);
-  load_row_stats(sLse, sDelta, lse + (size_t)b * Tq + q0, delta + (size_t)b * Tq + q0, BQ,
-                 qvalid);
-  for (int idx = threadIdx.x; idx < BQ * L.ldo; idx += blockDim.x) sdQ[idx] = 0.0f;
+// An opaque copy: the compiler cannot hoist what is computed from it.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
-  const bf16* kb = k + (size_t)b * Tk * C;
-  const bf16* vb = v + (size_t)b * Tk * C;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    const int kvalid = min(BK, Tk - k0);
-    load_rows(sK, L.ld, kb + (size_t)k0 * C, BK, kvalid, C);
-    load_rows(sV, L.ld, vb + (size_t)k0 * C, BK, kvalid, C);
-    __syncthreads();
-    scores<BQ, BK>(sQ, sK, sDO, sV, L.ld, sS, sDP, L.lds, C);
-    __syncthreads();
-    probs<BQ, BK>(sS, sDP, sP, sDS, L, sLse, sDelta, kvalid, scale);
-    __syncthreads();
-    // dq += (ds k) * scale
-    mma_acc<false>(sDS, L.ldp, sK, L.ld, sdQ, L.ldo, BQ, BK, C, scale, threadIdx.x / 32, kWarps);
-    __syncthreads();
+__device__ __forceinline__ void st_shared(uint32_t addr, float x) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(x) : "memory");
+}
+__device__ __forceinline__ float ld_shared(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+__device__ __forceinline__ void st_shared_b16(uint32_t addr, float x) {
+  asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr),
+               "h"(__bfloat16_as_ushort(__float2bfloat16(x)))
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Named barriers between the consumer warpgroups (id 0 is __syncthreads):
+// arrive does not wait, sync waits until `n` threads have arrived or synced.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) fence_regs(r[m]);
+}
+
+// wgmma shared-memory descriptors: start address, leading and stride byte
+// offsets, in 16-byte units.
+//  - 128-byte swizzle (the TMA boxes, 64 channels = 128 bytes a row): K-major
+//    (Q, K, dO as the S and dP operands) LBO unused, SBO = 1024 bytes between
+//    8-row groups; MN-major (Q^T, dO^T, K^T as the accumulating products' A)
+//    LBO = the stride between 64-channel boxes, SBO = 1024 between 8-row
+//    groups along K.
+//  - no swizzle (p^T, ds^T and ds, written by the consumers): a core matrix
+//    is 8 rows of 16 bytes; LBO between the two core matrices of a k16
+//    slice, along K, SBO between 8-row groups along N.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_nosw(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, B K-major;
+// TA = 1 reads A MN-major. d holds the thread's N/2 accumulators: d[i] is row
+// 16*warp + lane/4 + 8*((i/2)%2), column 8*(i/4) + 2*(lane%4) + i%2 of the
+// warpgroup's tile.
+template <int TA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA));
+}
+template <int TA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA));
+}
+
+// Tiles and shared memory of the bf16 kernels, by NB = CP / 64 (CP = C
+// rounded up to 128). A "box" is a TMA box of 64 channels (128 bytes a row,
+// 128-byte swizzle): QBOX for 64 query rows, KBOX for BK key rows.
+template <int NB>
+struct Bf16Cfg {
+  static constexpr int CP = NB * 64;
+  static constexpr int BQ = 64;                      // query rows a step (dk/dv) or a CTA (dq)
+  static constexpr int BK = NB <= 4 ? 64 : 32;       // keys a CTA (dk/dv) or a step (dq)
+  static constexpr int SN = BK / 2;                  // S or dP accumulators a thread
+  static constexpr uint32_t QBOX = BQ * 128;
+  static constexpr uint32_t KBOX = BK * 128;
+  static constexpr uint32_t PITCH = 2 * CP + 16;     // epilogue staging row, bytes
+  static constexpr uint32_t AVAIL = kSmemMax - 1024 - 8 * 65;   // alignment, barriers
+  static_assert(NB % 2 == 0 && NB <= 8, "C rounded up to 128, at most 512");
+};
+
+// dk/dv: K and V (owned, NB boxes each), p^T [2 parities][BK keys][64 q],
+// ds^T [BK][64], the p exchange (128 threads x SN floats), then the Q ring
+// and the dO ring of R boxes each.
+template <int NB>
+struct DkdvCfg : Bf16Cfg<NB> {
+  using B = Bf16Cfg<NB>;
+  static constexpr uint32_t OFF_K = 0;
+  static constexpr uint32_t OFF_V = NB * B::KBOX;
+  static constexpr uint32_t OFF_PT = 2 * NB * B::KBOX;
+  static constexpr uint32_t OFF_DST = OFF_PT + 2 * B::KBOX;
+  static constexpr uint32_t OFF_X = OFF_DST + B::KBOX;
+  static constexpr uint32_t OFF_RQ = OFF_X + 2 * B::KBOX;   // 128 * SN * 4 bytes
+  static constexpr int R0 = (int)((B::AVAIL - OFF_RQ) / (2 * B::QBOX));
+  static constexpr int R = R0 < 16 ? R0 : 16;
+  static constexpr uint32_t OFF_RDO = OFF_RQ + R * B::QBOX;
+  static constexpr uint32_t OFF_BAR = OFF_RDO + R * B::QBOX;
+  static constexpr uint32_t SMEM = OFF_BAR + 8 * (1 + 4 * R) + 1024;
+  static_assert(R >= NB, "a ring holds a step's boxes");
+  static_assert(B::BK * B::PITCH <= R * B::QBOX, "the epilogue stages in a ring");
+  static_assert(SMEM <= kSmemMax, "shared memory of one CTA");
+};
+
+// dq: Q and dO (owned, NB boxes of 64 rows each), ds [64 q][BK keys], the p
+// exchange, then the K ring and the V ring of R boxes each.
+template <int NB>
+struct DqCfg : Bf16Cfg<NB> {
+  using B = Bf16Cfg<NB>;
+  static constexpr uint32_t OFF_Q = 0;
+  static constexpr uint32_t OFF_DO = NB * B::QBOX;
+  static constexpr uint32_t OFF_DS = 2 * NB * B::QBOX;
+  static constexpr uint32_t OFF_X = OFF_DS + B::KBOX;        // ds is 64 x BK x 2 = KBOX bytes
+  static constexpr uint32_t OFF_RK = OFF_X + 2 * B::KBOX;
+  static constexpr int R0 = (int)((B::AVAIL - OFF_RK) / (2 * B::KBOX));
+  static constexpr int R = R0 < 16 ? R0 : 16;
+  static constexpr uint32_t OFF_RV = OFF_RK + R * B::KBOX;
+  static constexpr uint32_t OFF_BAR = OFF_RV + R * B::KBOX;
+  static constexpr uint32_t SMEM = OFF_BAR + 8 * (1 + 4 * R) + 1024;
+  static_assert(R >= NB, "the K ring holds a step's boxes");
+  static_assert(B::BQ * B::PITCH <= 2 * NB * B::QBOX, "the epilogue stages in Q and dO");
+  static_assert(SMEM <= kSmemMax, "shared memory of one CTA");
+};
+
+// A ring of TMA boxes: box g of a walk (g = step * nb + j: channels 64 j,
+// rows step * rows of batch element b) lives in slot g % R, with a full and
+// an empty mbarrier a slot (16 bytes apart: the two rings interleave). The
+// warpgroup that reads a box last releases it: every thread arrives on the
+// slot's empty barrier once its product is done, and once no product is in
+// flight every thread waits for the other 127 and the leader thread loads
+// box g + R into the slot, by one predicated instruction, not a branch.
+struct Ring {
+  const CUtensorMap* map;
+  uint32_t base, box, full, empty;
+  int R, nb, total, rows, b;
+
+  __device__ __forceinline__ uint32_t addr(int g) const { return base + (g % R) * box; }
+  __device__ __forceinline__ void wait(int g) const {
+    mbar_wait(full + 16 * (g % R), (g / R) & 1);
+  }
+  // box g into its slot, issued by the thread where `issue` holds
+  __device__ __forceinline__ void load(int g, bool issue) const {
+    const uint32_t bar = full + 16 * (g % R);
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+        "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
+        "@p cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%3], [%4, {%5, %6, %7}], [%1];\n}\n" ::"r"((int)issue),
+        "r"(bar), "r"(box), "r"(addr(g)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(64 * (g % nb)), "r"((g / nb) * rows), "r"(b)
+        : "memory");
+  }
+  // every thread of the releasing warpgroup, once its product of box g is
+  // done
+  __device__ __forceinline__ void arrive(int g) const { mbar_arrive(empty + 16 * (g % R)); }
+  // every thread of the releasing warpgroup, after arrive(g) and with no
+  // product in flight: box g + R follows into the slot
+  __device__ __forceinline__ void refill(int g, bool leader) const {
+    mbar_wait(empty + 16 * (g % R), (g / R) & 1);
+    __syncwarp();
+    load(g + R, leader && g + R < total);
+  }
+};
+
+// X[64 rows x BK] = A[64 rows, :C] B[BK rows, :C]^T over the NB boxes
+// g0 .. g0+NB-1 of a ring (the S or dP product): A owned and B from the
+// ring (dq), or A from the ring and B owned (dk/dv). A group of products a
+// box, each issued once its box is in, so the first boxes' products run
+// while the last ones load. Releases no box.
+template <int NB, int BK, bool kRingA>
+__device__ __forceinline__ void scores(float (&x)[BK / 2], uint32_t own, uint32_t own_box,
+                                       const Ring& ring, int g0) {
+  fence_regs(x);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    ring.wait(g0 + j);
+    __syncwarp();   // wgmma is .aligned: the warp converged
+    wgmma_fence();
+    const uint32_t ra = opaque(ring.addr(g0 + j)), oa = opaque(own) + j * own_box;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint64_t dr = desc_sw128(ra + kc * 32, 16, 1024);
+      const uint64_t dw = desc_sw128(oa + kc * 32, 16, 1024);
+      wgmma_ss<0>(x, kRingA ? dr : dw, kRingA ? dw : dr, j + kc > 0);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(x);
+}
+
+// acc[m] += A_m^T[64 ch x KD] W[KD x N] for the NT ring boxes g0 .. g0+NT-1
+// (A_m: box g0 + m, [KD rows][64 ch], read MN-major; W: the no-swizzle
+// K-major buffer at w, LBO wl), releasing each box once its product is
+// done, while the next one runs, and refilling the slots after the last.
+template <int NT, int KD, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[NT][N / 2], const Ring& ring, int g0,
+                                           uint32_t w, uint32_t wl, bool leader) {
+  for (int m = 0; m < NT; ++m) ring.wait(g0 + m);
+  __syncwarp();
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < NT; ++m) {
+    const uint32_t ra = opaque(ring.addr(g0 + m)), wa = opaque(w);
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk)
+      wgmma_ss<1>(acc[m], desc_sw128(ra + kk * 2048, ring.box, 1024),
+                  desc_nosw(wa + kk * 2 * wl, wl, 128), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (m > 0) ring.arrive(g0 + m - 1);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  ring.arrive(g0 + NT - 1);
+  for (int m = 0; m < NT; ++m) ring.refill(g0 + m, leader);
+}
+
+// Epilogue: acc[m][i] (channel 64 (c0 + m) + row, column n of the
+// accumulator layout) times mul, rounded to bf16, staged as [n][channel] at
+// stg, then `rows` rows of C channels copied out to out (row stride C) by
+// the nthreads threads from `tid`, after a named barrier `bar`.
+template <int NT, int N>
+__device__ __forceinline__ void store_tiles(const float (&acc)[NT][N / 2], float mul,
+                                            unsigned char* stg, uint32_t pitch, int c0, int w,
+                                            int lane, int bar, int tid, int nthreads,
+                                            bf16* __restrict__ out, int rows, int C) {
+  const uint32_t s = smem_u32(stg);
+#pragma unroll
+  for (int m = 0; m < NT; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int ch = 64 * (c0 + m) + 16 * w + lane / 4 + 8 * ((i / 2) % 2);
+      const int n = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      st_shared_b16(s + n * pitch + ch * 2, acc[m][i] * mul);
+    }
+  bar_sync(bar, nthreads);
+  const int chunks = C / 8;
+  for (int idx = tid; idx < rows * chunks; idx += nthreads) {
+    const int r = idx / chunks, c8 = idx - r * chunks;
+    *reinterpret_cast<uint4*>(out + (size_t)r * C + c8 * 8) =
+        *reinterpret_cast<const uint4*>(stg + r * pitch + c8 * 16);
+  }
+}
+
+// Barriers of a CTA: the owned tile's full barrier, then full and empty of
+// ring A, then of ring B (R slots each).
+__device__ __forceinline__ void init_barriers(uint32_t bars, int R) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < 2 * R; ++s) {
+      mbar_init(bars + 8 + 16 * s, 1);         // full: the leader's expect_tx
+      mbar_init(bars + 16 + 16 * s, 128);      // empty: every reading thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+template <int NB>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int C,
+                           float scale) {
+  using K = DkdvCfg<NB>;
+  constexpr int R = K::R, BK = K::BK, SN = K::SN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;   // swizzle atoms sit on 1024 bytes
+  unsigned char* gbase = smem_raw + (sbase - raw);
+  const uint32_t bars = sbase + K::OFF_BAR;
+  init_barriers(bars, R);
+
+  const int b = blockIdx.y, k0 = blockIdx.x * BK;
+  const int steps = (Tq + K::BQ - 1) / K::BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, w = warp % 4, tid = threadIdx.x % 128;
+  // ring 0: Q, read by warpgroup 0 (S, p and dK); ring 1: dO, read by
+  // warpgroup 1 (dP, ds and dV)
+  auto ring_of = [&](int r) {
+    return Ring{r ? &tm_do : &tm_q, sbase + (r ? K::OFF_RDO : K::OFF_RQ), K::QBOX,
+                bars + 8 + 16 * R * r, bars + 16 + 16 * R * r, R, NB, steps * NB, K::BQ, b};
+  };
+  const Ring ring = ring_of(wg);
+  const bool leader = tid == 0;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars, 2 * NB * K::KBOX);
+    for (int j = 0; j < NB; ++j) {
+      tma_load_3d(sbase + K::OFF_K + j * K::KBOX, &tm_k, bars, 64 * j, k0, b);
+      tma_load_3d(sbase + K::OFF_V + j * K::KBOX, &tm_v, bars, 64 * j, k0, b);
+    }
+  }
+  for (int g = 0; g < R && g < steps * NB; ++g) ring.load(g, leader);
+
+  const uint32_t own = sbase + (wg ? K::OFF_V : K::OFF_K);
+  const uint32_t xch = sbase + K::OFF_X + tid * 4;
+  const uint32_t dst = sbase + K::OFF_DST;
+  const float* stat = (wg ? delta : lse) + (size_t)b * Tq;
+  const float scale_log2 = scale * kLog2e;
+  float acc[NB][SN];
+#pragma unroll
+  for (int m = 0; m < NB; ++m)
+#pragma unroll
+    for (int i = 0; i < SN; ++i) acc[m][i] = 0.0f;
+  mbar_wait(bars, 0);
+
+  for (int t = 0; t < steps; ++t) {
+    // the thread's two query rows: lse in log2 units (+inf past Tq: p = 0)
+    // for warpgroup 0, delta (0 past Tq) for warpgroup 1
+    float st[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = t * K::BQ + 16 * w + lane / 4 + 8 * h;
+      st[h] = q < Tq ? (wg ? stat[q] : stat[q] * kLog2e) : (wg ? 0.0f : INFINITY);
+    }
+    const uint32_t pt = sbase + K::OFF_PT + (t & 1) * K::KBOX;
+    float x[SN];
+    scores<NB, BK, true>(x, own, K::KBOX, ring, t * NB);
+    // p^T and ds^T as [key][q], no swizzle: (q/8) * BK*16 + key * 16 + (q%8) * 2
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        const int q = 16 * w + lane / 4 + 8 * ((i / 2) % 2);
+        const int key = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const float p = exp2f(fmaf(x[i], scale_log2, -st[(i / 2) % 2]));
+        st_shared(xch + i * 512, p);
+        st_shared_b16(pt + (q / 8) * (BK * 16) + key * 16 + (q % 8) * 2, p);
+      }
+      fence_proxy_async();
+      bar_arrive(1, 256);   // p ready
+      bar_sync(2, 256);     // ds^T ready
+    } else {
+      bar_sync(1, 256);     // p ready
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        const int q = 16 * w + lane / 4 + 8 * ((i / 2) % 2);
+        const int key = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const float ds = ld_shared(xch + i * 512) * (x[i] - st[(i / 2) % 2]);
+        st_shared_b16(dst + (q / 8) * (BK * 16) + key * 16 + (q % 8) * 2, ds);
+      }
+      fence_proxy_async();
+      bar_arrive(2, 256);   // ds^T ready
+    }
+    // dK^T += Q^T ds^T (warpgroup 0), dV^T += dO^T p^T (1), box by box
+    accumulate<NB, 64, BK>(acc, ring, t * NB, wg ? pt : dst, BK * 16, leader);
   }
 
-  bf16* dqb = dq + ((size_t)b * Tq + q0) * C;
-  for (int idx = threadIdx.x; idx < qvalid * C; idx += blockDim.x) {
-    const int r = idx / C;
-    const int c = idx - r * C;
-    dqb[(size_t)r * C + c] = __float2bfloat16(sdQ[r * L.ldo + c]);
+  // each warpgroup stages its gradient in its own ring, idle now
+  store_tiles<NB, BK>(acc, wg ? 1.0f : scale, gbase + (wg ? K::OFF_RDO : K::OFF_RQ), K::PITCH,
+                      0, w, lane, 3 + wg, tid, 128, (wg ? dv : dk) + ((size_t)b * Tk + k0) * C,
+                      min(BK, Tk - k0), C);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int Tq, int Tk, int C, float scale) {
+  using K = DqCfg<NB>;
+  constexpr int R = K::R, BK = K::BK, SN = K::SN, NH = NB / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (sbase - raw);
+  const uint32_t bars = sbase + K::OFF_BAR;
+  init_barriers(bars, R);
+
+  const int b = blockIdx.y, q0 = blockIdx.x * K::BQ;
+  const int steps = (Tk + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, w = warp % 4, tid = threadIdx.x % 128;
+  // ring 0: K, read by warpgroup 0 (S) and by the warpgroup that owns its
+  // half of the channels (dQ), which releases it; ring 1: V, read and
+  // released by warpgroup 1 (dP)
+  auto ring_of = [&](int r) {
+    return Ring{r ? &tm_v : &tm_k, sbase + (r ? K::OFF_RV : K::OFF_RK), K::KBOX,
+                bars + 8 + 16 * R * r, bars + 16 + 16 * R * r, R, NB, steps * NB, BK, b};
+  };
+  const Ring ring = ring_of(wg), ring_k = ring_of(0);
+  const bool leader = tid == 0;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars, 2 * NB * K::QBOX);
+    for (int j = 0; j < NB; ++j) {
+      tma_load_3d(sbase + K::OFF_Q + j * K::QBOX, &tm_q, bars, 64 * j, q0, b);
+      tma_load_3d(sbase + K::OFF_DO + j * K::QBOX, &tm_do, bars, 64 * j, q0, b);
+    }
   }
+  for (int g = 0; g < R && g < steps * NB; ++g) ring.load(g, leader);   // K or V
+
+  const uint32_t own = sbase + (wg ? K::OFF_DO : K::OFF_Q);
+  const uint32_t xch = sbase + K::OFF_X + tid * 4;
+  const uint32_t ds_buf = sbase + K::OFF_DS;
+  const float scale_log2 = scale * kLog2e;
+  float st[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = q0 + 16 * w + lane / 4 + 8 * h;
+    const float* stat = (wg ? delta : lse) + (size_t)b * Tq;
+    st[h] = q < Tq ? (wg ? stat[q] : stat[q] * kLog2e) : (wg ? 0.0f : INFINITY);
+  }
+  float acc[NH][32];
+#pragma unroll
+  for (int m = 0; m < NH; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.0f;
+  mbar_wait(bars, 0);
+
+  for (int t = 0; t < steps; ++t) {
+    float x[SN];
+    scores<NB, BK, false>(x, own, K::QBOX, ring, t * NB);
+    // ds as [q][key], no swizzle: (key/8) * 64*16 + q * 16 + (key%8) * 2
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        const int key = t * BK + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const float p = key < Tk ? exp2f(fmaf(x[i], scale_log2, -st[(i / 2) % 2])) : 0.0f;
+        st_shared(xch + i * 512, p);
+      }
+      bar_arrive(1, 256);   // p ready
+    } else {
+      for (int j = 0; j < NB; ++j) ring.arrive(t * NB + j);   // V
+      for (int j = 0; j < NB; ++j) ring.refill(t * NB + j, leader);
+      bar_sync(1, 256);     // p ready
+#pragma unroll
+      for (int i = 0; i < SN; i += 2) {
+        const int q = 16 * w + lane / 4 + 8 * ((i / 2) % 2);
+        const int key = 8 * (i / 4) + 2 * (lane % 4);
+        const float ds0 = ld_shared(xch + i * 512) * (x[i] - st[(i / 2) % 2]);
+        const float ds1 = ld_shared(xch + (i + 1) * 512) * (x[i + 1] - st[(i / 2) % 2]);
+        st_shared_b32(ds_buf + (key / 8) * 1024 + q * 16 + (key % 8) * 2, pack_bf16(ds0, ds1));
+      }
+      fence_proxy_async();
+    }
+    bar_sync(2, 256);       // ds ready
+    // dQ^T[half] += K[:, half]^T ds^T, box by box
+    accumulate<NH, BK, 64>(acc, ring_k, t * NB + wg * NH, ds_buf, 1024, leader);
+  }
+
+  bar_sync(3, 256);   // both warpgroups are done with Q and dO
+  store_tiles<NH, 64>(acc, scale, gbase + K::OFF_Q, K::PITCH, wg * NH, w, lane, 4, threadIdx.x,
+                      256, dq + ((size_t)b * Tq + q0) * C, min(K::BQ, Tq - q0), C);
 }
 
 // ---------------------------------------------------------------- f32 path
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0)
@@ -719,35 +1026,82 @@ int launch_delta(const void* o, const void* dout, void* delta, int B, int Tq, in
   return (int)cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a [B, T, C] bf16 tensor: boxes of `rows` x 64 channels,
+// 128-byte swizzle, out-of-range elements read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int C, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The four maps of a bf16 launch: q and do in 64-row boxes, k and v in BK.
+bool make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+               const void* dout, int B, int Tq, int Tk, int C, int bk) {
+  return make_map(&m[0], q, B, Tq, C, 64) && make_map(&m[1], k, B, Tk, C, bk) &&
+         make_map(&m[2], v, B, Tk, C, bk) && make_map(&m[3], dout, B, Tq, C, 64);
+}
+
+template <int NB>
 int launch_dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int B, int Tq,
                      int Tk, int C, float scale, cudaStream_t stream) {
-  const Layout L = dkdv_layout(C);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel,
+  using K = DkdvCfg<NB>;
+  CUtensorMap m[4];
+  if (!make_maps(m, q, k, v, dout, B, Tq, Tk, C, K::BK)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<NB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.total);
+                                         (int)K::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tk + Bf16Cfg::KV_BK - 1) / Bf16Cfg::KV_BK, B);
-  flash_bwd_dkdv_kernel<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, C,
-      scale);
+  const dim3 grid((Tk + K::BK - 1) / K::BK, B);
+  flash_bwd_dkdv_bf16_kernel<NB><<<grid, 256, K::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, C, scale);
   return (int)cudaGetLastError();
 }
 
+template <int NB>
 int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int Tq, int Tk, int C, float scale,
                    cudaStream_t stream) {
-  const Layout L = dq_layout(C);
+  using K = DqCfg<NB>;
+  CUtensorMap m[4];
+  if (!make_maps(m, q, k, v, dout, B, Tq, Tk, C, K::BK)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      flash_bwd_dq_bf16_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + Bf16Cfg::Q_BQ - 1) / Bf16Cfg::Q_BQ, B);
-  flash_bwd_dq_kernel<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Tq, Tk, C, scale);
+  const dim3 grid((Tq + K::BQ - 1) / K::BQ, B);
+  flash_bwd_dq_bf16_kernel<NB><<<grid, 256, K::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Tq, Tk, C, scale);
   return (int)cudaGetLastError();
 }
 
@@ -812,8 +1166,15 @@ int cgic_flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const 
   int err = dtype == 1 ? launch_delta<bf16>(o, dout, delta, B, Tq, C, s)
                        : launch_delta<float>(o, dout, delta, B, Tq, C, s);
   if (err != 0) return err;
-  if (dtype == 1)
-    return launch_dkdv_bf16(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
+  if (dtype == 1) {
+    switch ((C + 127) / 128) {
+      case 1: return launch_dkdv_bf16<2>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
+      case 2: return launch_dkdv_bf16<4>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
+      case 3: return launch_dkdv_bf16<6>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
+      case 4: return launch_dkdv_bf16<8>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
+    }
+    return -1;
+  }
   switch (f32_groups(C)) {
     case 1: return launch_dkdv_f32<1>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
     case 2: return launch_dkdv_f32<2>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, C, scale, s);
@@ -828,7 +1189,15 @@ int cgic_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int C, int dtype, float scale, void* stream) {
   if (!args_ok(B, Tq, Tk, C)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_dq_bf16(q, k, v, dout, lse, delta, dq, B, Tq, Tk, C, scale, s);
+  if (dtype == 1) {
+    switch ((C + 127) / 128) {
+      case 1: return launch_dq_bf16<2>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, C, scale, s);
+      case 2: return launch_dq_bf16<4>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, C, scale, s);
+      case 3: return launch_dq_bf16<6>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, C, scale, s);
+      case 4: return launch_dq_bf16<8>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, C, scale, s);
+    }
+    return -1;
+  }
   if (dtype != 0) return -1;
   switch (f32_groups(C)) {
     case 1: return launch_dq_f32<1>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, C, scale, s);

@@ -149,11 +149,13 @@ def kernel_bwd_blocks(dtype: torch.dtype, c: int
                       ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """The backward kernels' tiles, ((query rows a step, keys a CTA) of the
     dk/dv kernel, (query rows a CTA, keys a step) of the dq kernel): in bf16
-    (32, 16) and (32, 32) (kernels/flash_attn_bwd.cu, Bf16Cfg); in f32 a CTA
+    64 query rows and BK keys in both, BK = 32 where C rounded up to 128 is
+    above 256, else 64 (kernels/flash_attn_bwd.cu, Bf16Cfg); in f32 a CTA
     owns 32 rows and walks the other side 64 at a time, at every C
     (F32Cfg)."""
     if dtype == torch.bfloat16:
-        return (32, 16), (32, 32)
+        bk = 32 if -(-c // 128) * 128 > 256 else 64
+        return (64, bk), (64, bk)
     return (64, 32), (32, 64)
 
 
@@ -167,7 +169,8 @@ def flash_attention_backward_blocked_reference(
     walk over the query blocks for dk and dv, per query block a walk over
     the key blocks for dq. p = exp(s·scale − lse) in f32; ds = p∘(do vᵀ −
     delta). In bf16, p is rounded before pᵀ do, ds before dsᵀ q and ds k,
-    and each block product of dk and dq is scaled once (JAX's order); in
+    and dk and dq sum the unscaled block products and are scaled once at
+    the end, as the bf16 kernels do (JAX scales each block product); in
     f32 the scale is folded into ds (ds·scale), and dk and dq sum the
     unscaled block products of it, as the f32 kernels do. lse is [B, Tq]
     f32. The blocks default to the kernels' (`kernel_bwd_blocks`); given
@@ -178,6 +181,7 @@ def flash_attention_backward_blocked_reference(
     scale = float(c) ** -0.5
     dt = q.dtype
     fold = dt == torch.float32
+    post = 1.0 if fold else scale     # the scale of dk and dq after the sums
     (kv_bq, kv_bk), (q_bq, q_bk) = kernel_bwd_blocks(dt, c)
     if block_q or block_k:
         kv_bq = q_bq = block_q or kv_bq
@@ -208,9 +212,8 @@ def flash_attention_backward_blocked_reference(
         for q0 in range(0, tq, kv_bq):
             qb, dob, _, p, ds = block(q0, kv_bq, k0, kv_bk)
             dv_acc = dv_acc + torch.matmul(p.transpose(1, 2), dob)
-            prod = torch.matmul(ds.transpose(1, 2), qb)
-            dk_acc = dk_acc + (prod if fold else prod * scale)
-        dk[:, k0:k0 + kv_bk] = dk_acc.to(dt)
+            dk_acc = dk_acc + torch.matmul(ds.transpose(1, 2), qb)
+        dk[:, k0:k0 + kv_bk] = (dk_acc * post).to(dt)
         dv[:, k0:k0 + kv_bk] = dv_acc.to(dt)
     dq = torch.empty_like(q)
     for q0 in range(0, tq, q_bq):
@@ -218,9 +221,8 @@ def flash_attention_backward_blocked_reference(
         dq_acc = torch.zeros(q.shape[0], rows, c, device=q.device)
         for k0 in range(0, tk, q_bk):
             _, _, kb, _, ds = block(q0, q_bq, k0, q_bk)
-            prod = torch.matmul(ds, kb)
-            dq_acc = dq_acc + (prod if fold else prod * scale)
-        dq[:, q0:q0 + q_bq] = dq_acc.to(dt)
+            dq_acc = dq_acc + torch.matmul(ds, kb)
+        dq[:, q0:q0 + q_bq] = (dq_acc * post).to(dt)
     return dq, dk, dv
 
 

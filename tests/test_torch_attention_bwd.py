@@ -108,6 +108,56 @@ def test_f32_replay_at_kernel_blocking_matches_pallas_interpret(
         _close(g, _np(w), "float32")
 
 
+# (B, Tq, Tk, C, JAX block_q, JAX block_k) in bf16: the kernels own 64 query
+# rows and BK keys, BK = 64 up to C = 256 and 32 above (C = 384 and 512
+# here); the last two lengths are no multiple of either tile
+BF16_BLOCKING = [(1, 256, 256, 64, 256, 256), (1, 256, 512, 128, 256, 256),
+                 (1, 128, 256, 256, 128, 256), (1, 96, 100, 384, 96, 100),
+                 (1, 64, 160, 512, 64, 160), (2, 100, 130, 64, 100, 130)]
+
+
+def _bf16_case(b, tq, tk, c, jbq, jbk):
+    """bf16 inputs on both sides, JAX's forward output and lse for both, and
+    JAX's backward at its blocks."""
+    (jq, jk, jv, jdo), (q, k, v, do) = _both(
+        _inputs(11 * c + tq + tk, b, tq, tk, c), "bfloat16")
+    jo, jlse = jat.attention_flash_with_lse(jq, jk, jv, jbq, jbk,
+                                            interpret=True)
+    o = torch.from_numpy(_np(jo).copy()).to(torch.bfloat16)
+    lse = torch.from_numpy(_np(jlse)[..., 0].copy())
+    return (jq, jk, jv, jo, jlse, jdo), (q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("b, tq, tk, c, jbq, jbk", BF16_BLOCKING)
+def test_bf16_replay_at_kernel_blocking_matches_pallas_interpret(
+        b, tq, tk, c, jbq, jbk):
+    """The replay at the bf16 kernels' own tiles and scaling order (dk and dq
+    scaled once after the sums) against JAX's backward, within 2e-2 of
+    max(1, max|JAX|): p and ds are rounded to bf16 at the same points on
+    both sides, and the f32 sums differ in order only."""
+    bk = 64 if c <= 256 else 32
+    assert tat.kernel_bwd_blocks(torch.bfloat16, c) == ((64, bk), (64, bk))
+    jax_in, port_in = _bf16_case(b, tq, tk, c, jbq, jbk)
+    want = jat._flash_backward(*jax_in, jbq, jbk, interpret=True)
+    got = tat.flash_attention_backward_blocked_reference(*port_in)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == tuple(w.shape)
+        _close(g, _np(w), "bfloat16")
+
+
+@pytest.mark.parametrize("b, tq, tk, c, jbq, jbk", BF16_BLOCKING)
+def test_bf16_replay_at_kernel_tiles_matches_replay_at_jax_blocks(
+        b, tq, tk, c, jbq, jbk):
+    """The same replay at the kernels' tiles and at JAX's blocks: only the
+    order of the f32 sums and where p and ds fall in blocks differ, within
+    2e-2 of max(1, max|grad|)."""
+    _, port_in = _bf16_case(b, tq, tk, c, jbq, jbk)
+    got = tat.flash_attention_backward_blocked_reference(*port_in)
+    want = tat.flash_attention_backward_blocked_reference(*port_in, jbq, jbk)
+    for g, w in zip(got, want):
+        _close(g, w.float().numpy(), "bfloat16")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b, tq, tk, c", SHAPES)
 def test_dispatch_autograd_matches_jax_vjp(b, tq, tk, c, dtype):

@@ -185,10 +185,38 @@ def test_flash_backward_matches_autograd_of_plain(cuda, dtype, b, tq, tk, c):
         assert _rel_err(g, w) <= OUT_TOL[dtype], name
 
 
+# the bf16 kernels' tile edges: dk/dv owns BK keys (32 at C = 512, 64 at
+# C = 256) and steps 64 query rows, dq the other way round; lengths one
+# below and one above a tile, Tq != Tk
+@pytest.mark.parametrize("b, tq, tk, c", [(2, 63, 31, 512), (2, 65, 33, 512),
+                                          (2, 129, 95, 512),
+                                          (2, 4095, 4097, 512),
+                                          (2, 1024, 4096, 512),
+                                          (2, 63, 63, 256), (2, 65, 65, 256),
+                                          (2, 127, 129, 256),
+                                          (2, 4097, 4095, 256),
+                                          (2, 1024, 4096, 256)])
+def test_bf16_backward_at_tile_edges(cuda, b, tq, tk, c):
+    """dq, dk and dv against autograd of the plain version within
+    2e-2 max(1, max|plain|), and two launches give equal bits."""
+    q, k, v = _qkv(cuda, b, tq, tk, c, torch.bfloat16, 7 * tq + tk + c)
+    do = torch.randn(b, tq, c, device=cuda).to(torch.bfloat16)
+    o, lse = A.flash_attention(q, k, v, return_lse=True)
+    got = A.flash_attention_backward(q, k, v, o, lse, do)
+    again = A.flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    want = _grads(A.attention_reference, q, k, v, do)[1:]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert _rel_err(g, w) <= OUT_TOL[torch.bfloat16], name
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b, tq, tk, c", [(2, 4096, 4096, 512),
                                           (2, 4096, 4096, 256),
+                                          (2, 65, 33, 512),
                                           (2, 1000, 1500, 64)])
 def test_flash_backward_is_bit_stable(cuda, dtype, b, tq, tk, c):
     """No atomics: two launches of each backward kernel give equal bytes."""
