@@ -6,14 +6,14 @@ Phases, each printing a line of its own:
   1. device: the card's name and power limit (nvidia-smi); fails without CUDA;
   2. build: compiles every CUDA kernel of the main paths from this checkout,
      one nvcc per source, all started together, and fails if ptxas reports
-     a spill in a flash backward instantiation (f32 or bf16) or a bf16
-     chain instantiation (chain_kernel_wgmma<8|128|256>), whose registers it
-     logs;
+     a spill in a flash backward instantiation (f32 or bf16), a bf16
+     chain instantiation (chain_kernel_wgmma<8|128|256>) or a SpatialNorm
+     apply instantiation, whose registers it logs;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths, with its time, the device time per launch
-     (profiler), the plain version's, the library call's and the bound; the
-     flash rows also with the share of the bound, the forward's with its key
-     splits;
+     (profiler), the host time per call of its wrapper, the plain version's,
+     the library call's and the bound; the flash rows also with the share of
+     the bound, the forward's with its key splits;
   4. 256x256 path: the full-width codec (random weights from a seed, bf16)
      compresses 256x256 images through stream files in all 7 modes, with a
      receiver-only decode from the files and the kernel launch counts, then
@@ -41,7 +41,7 @@ Phases, each printing a line of its own:
      shape groups) at full width in bf16, under the default switches, under
      CONTROL_GIC_CHAIN=0 + CONTROL_GIC_NORM_CONV=1 and under
      CONTROL_GIC_FUSED_NORM=1, each with bpp, PSNR, ms per image and exact
-     launch counts, the first two profiled;
+     launch counts, each profiled (kernels per image);
  11. tile f32: one 768x768 tile through the f32 model with all three
      switches set, kernels against ops.plain_versions().
 Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
@@ -204,6 +204,27 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, n: int = 20, rounds: int = 5) -> float:
+    """Host µs per call of `fn`: time.perf_counter around n calls with no
+    synchronisation between them, after a warm call; the median of `rounds`
+    such runs (host time varies from run to run). It is the wrapper's own
+    work (checks, allocation, launch), which CUDA events around a short
+    kernel measure in its place."""
+    import statistics
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str, peaks) -> tuple:
     """The least time for the work: flops over the dtype's peak, bytes over
     the memory rate, whichever is larger, and which one it is."""
@@ -313,6 +334,14 @@ def phase_build() -> None:
         if len(chain) != 3 or any(st or ld for _, st, ld in chain.values()):
             raise AssertionError(f"bf16 chain instantiations: expected 3 "
                                  f"without spills, got {chain}")
+    if "spatial_norm_apply" in build.BUILD_LOG:
+        apply = {name: entry for name, entry in ptxas_entries(
+            build.BUILD_LOG["spatial_norm_apply"][1]).items()
+            if "apply_kernel" in name}
+        log("ptxas spatial_norm_apply", kernels=apply)
+        if len(apply) != 12 or any(st or ld for _, st, ld in apply.values()):
+            raise AssertionError(f"apply instantiations: expected 12 without "
+                                 f"spills, got {apply}")
 
 
 def ptxas_entries(report: str) -> dict:
@@ -371,6 +400,7 @@ def phase_kernels(dev: dict) -> list:
         row = {"kernel": "flash_attn_fwd", "shape": [b, tq, tk, c],
                "dtype": dt, "max_abs_err": err, "tol": ATTN_TOL[dt],
                "ms": ms, "device_us": dev_us, "bound_share": bms / ms,
+               "host_us": host_us(lambda: A.flash_attention(q, k, v)),
                "key_splits": flash_splits(b, tq, tk, c, dt),
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bms, "bound_by": bound_by,
@@ -462,6 +492,14 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
             "flash_attn_bwd_dq": device_us_per_launch(
                 lambda: A.flash_attention_backward_dq(q, k, v, do, lse,
                                                       delta))}
+        calls = {
+            "flash_attn_fwd_lse": lambda: A.flash_attention(
+                q, k, v, return_lse=True),
+            "flash_attn_bwd_dkdv": lambda: A.flash_attention_backward_dkdv(
+                q, k, v, o, lse, do),
+            "flash_attn_bwd_dq": lambda: A.flash_attention_backward_dq(
+                q, k, v, do, lse, delta)}
+        host = {name: host_us(call) for name, call in calls.items()}
         ms = {"flash_attn_fwd_lse": cuda_time_ms(
                   lambda: A.flash_attention(q, k, v, return_lse=True)),
               "flash_attn_bwd_dkdv": cuda_time_ms(
@@ -513,7 +551,7 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
                    else lib_fb,
                    "library": f"SDPA {'forward' if name.endswith('lse') else 'forward + backward'}, backend {backend}",
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                   "device_us": dev_us[name],
+                   "device_us": dev_us[name], "host_us": host[name],
                    "bound_share": bounds[name][0] / ms[name],
                    "card": dev["nvidia_smi"]}
             if name == "flash_attn_fwd_lse":
@@ -527,7 +565,7 @@ def train_attn_rows(dev: dict, peaks, gen) -> list:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {row}")
             rows.append(row)
-        del q, k, v, do, o, lse, dq, dk, dv, delta, leaves, l4
+        del q, k, v, do, o, lse, dq, dk, dv, delta, leaves, l4, calls
     return rows
 
 
@@ -660,7 +698,7 @@ def chain_rows(dev: dict, peaks, gen) -> list:
                "rel_err": err, "tol": OUT_TOL[dt], "mom_rel_err": mom_err,
                "mom_tol": MOM_TOL[dt], "ms": ms,
                "device_us": device_us_per_launch(kernel),
-               "plain_ms": plain_ms,
+               "host_us": host_us(kernel), "plain_ms": plain_ms,
                "library_ms": lib_ms, "library": "F.conv2d, conv only",
                "bound_ms": bms, "bound_by": bound_by,
                "bound_share": bms / ms, "card": dev["nvidia_smi"]}
@@ -698,6 +736,7 @@ def moment_rows(dev: dict, peaks, gen) -> list:
                "max_abs_err": (got - want).abs().max().item(), "ms": ms,
                "device_us": device_us_per_launch(
                    lambda: FN.gn_moments_kernel(x)),
+               "host_us": host_us(lambda: FN.gn_moments_kernel(x)),
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "torch.var_mean over (H, W), correction=0",
                "bound_ms": bms, "bound_by": bound_by,
@@ -722,9 +761,10 @@ def _norm_inputs(r, c, h, w, dtype, modulate=True):
 
 
 def apply_rows(dev: dict, peaks, gen) -> list:
-    """The SpatialNorm apply kernel at APPLY_SHAPES, its stats given (as the
-    moment pass gives them), against its plain version
-    spatial_norm_kernel_act; no library call computes it."""
+    """The SpatialNorm apply kernel at APPLY_SHAPES, fed the moments (as the
+    moment pass gives them; the kernel folds them into the group stats),
+    against its plain version spatial_norm_kernel_act on the torch fold of
+    the same moments; no library call computes it."""
     import torch
 
     from control_gic_tpu_torch.ops import fused_norm as FN
@@ -736,11 +776,12 @@ def apply_rows(dev: dict, peaks, gen) -> list:
                                                       generator=gen)
         a = _norm_inputs(r, c, h, w, dtype)
         x, zq_r = a.pop("x"), a.pop("zq_r")
-        stats = FN.gn_stats_from_moments(FN.gn_moments_reference(x), h * w)
+        mom = FN.gn_moments_reference(x)
         p = [a[k] for k in ("gs", "gb", "wy", "by", "wb", "bb")]
-        kernel = lambda: FN.spatial_norm_apply_kernel(x, zq_r, *p, stats,
+        kernel = lambda: FN.spatial_norm_apply_kernel(x, zq_r, *p, mom,
                                                       swish)
-        plain = lambda: FN.spatial_norm_kernel_act(x, zq_r, *p, swish, stats)
+        plain = lambda: FN.spatial_norm_kernel_act(
+            x, zq_r, *p, swish, FN.gn_stats_from_moments(mom, h * w))
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = rel_err(got, want)
@@ -748,13 +789,18 @@ def apply_rows(dev: dict, peaks, gen) -> list:
                                  x.element_size() * (2 * x.numel()
                                                      + zq_r.numel()),
                                  "float32", peaks)
+        ms = cuda_time_ms(kernel)
+        dev_us = device_us_per_launch(kernel)
         row = {"kernel": "spatial_norm_apply", "shape": [b, c, h, w],
                "swish": swish, "dtype": dt, "rel_err": err,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
-               "tol": OUT_TOL[dt], "ms": cuda_time_ms(kernel),
-               "device_us": device_us_per_launch(kernel),
+               "tol": OUT_TOL[dt], "ms": ms, "device_us": dev_us,
+               "host_us": host_us(kernel),
                "plain_ms": cuda_time_ms(plain), "library_ms": None,
                "bound_ms": bms, "bound_by": bound_by,
+               "bound_share": bms / ms,
+               "device_bound_share": (None if dev_us is None
+                                      else 1e3 * bms / dev_us),
                "card": dev["nvidia_smi"]}
         log("kernel spatial_norm_apply", **row)
         if not err <= OUT_TOL[dt]:
@@ -813,6 +859,7 @@ def norm_conv_rows(dev: dict, peaks, gen) -> list:
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
                "tol": OUT_TOL[dt], "ms": ms,
                "device_us": device_us_per_launch(kernel),
+               "host_us": host_us(kernel),
                "plain_ms": cuda_time_ms(plain), "library_ms": lib_ms,
                "library": "F.conv2d, conv only", "bound_ms": bms,
                "bound_by": bound_by, "bound_share": bms / ms,
@@ -1344,9 +1391,8 @@ def phase_tiled(dev: dict, codec, workdir: str) -> dict:
             if not (bpp > 0 and np.isfinite(psnr)):
                 raise AssertionError(f"tiled {setting}: bpp {bpp}, PSNR "
                                      f"{psnr}")
-            if setting != "fused_norm1":
-                log_profile(dev, f"tiled {setting}", 1,
-                            *device_profile(lambda: run("hr_prof")))
+            log_profile(dev, f"tiled {setting}", 1,
+                        *device_profile(lambda: run("hr_prof")))
     return launches
 
 

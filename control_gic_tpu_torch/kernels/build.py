@@ -46,17 +46,14 @@ SIGNATURES = {
         "cgic_norm_conv_chain_block_n": (_I, [_I, _I]),
         "cgic_norm_conv_chain_tiles": (_I, [_I] * 4),
     },
-    "gn_moments": {
-        "cgic_gn_moments": (_I, [_P, _P, _I, _I, _L, _I, _P]),
-    },
-    "spatial_norm_apply": {
-        "cgic_spatial_norm_apply": (_I, [_P] * 11 + [_I, _I, _L, _I, _I,
-                                                     _P]),
-    },
+    # one block of int64 arguments (ops/fused_norm.py::_launch)
+    "gn_moments": {"cgic_gn_moments": (_I, [_P])},
+    "spatial_norm_apply": {"cgic_spatial_norm_apply": (_I, [_P])},
 }
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
 # name -> (seconds, ptxas report) of the builds this process ran
 BUILD_LOG: Dict[str, tuple] = {}
 
@@ -110,6 +107,16 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _LIBS[name] = lib
         return lib
+
+
+def function(name: str, fn: str) -> ctypes._CFuncPtr:
+    """The exported function `fn` of kernels/<name>.cu's library, with its
+    types declared: looked up under load()'s lock on the first call only, so
+    that a wrapper on a hot path takes no lock."""
+    f = _FUNCTIONS.get((name, fn))
+    if f is None:
+        f = _FUNCTIONS[name, fn] = getattr(load(name), fn)
+    return f
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

@@ -4,7 +4,8 @@
 // (launched by _gn_stats_pallas). Input x is NCHW [B, C, H, W], contiguous,
 // float32 or bfloat16; output mom is [B, 2, C] f32: mom[b, 0, c] = sum over
 // H*W of x, mom[b, 1, c] = sum of x*x, both of x's values widened to f32.
-// The group fold (mean, var, rstd) is tiny [B, C] work done in torch
+// The group fold (mean, var, rstd) is tiny [B, C] work: the SpatialNorm apply kernel
+// (spatial_norm_apply.cu) does it in its prologue; the other callers run it in torch
 // (ops/fused_norm.py::gn_stats_from_moments), as XLA did it after the kernel.
 //
 // What bounds it on an H100: bytes. It reads x once (at 512x768x256 bf16,
@@ -113,14 +114,17 @@ int launch(const void* x, void* mom, int B, int C, long long HW, cudaStream_t st
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 or a cudaError_t code; -1 for
-// arguments the kernel does not take.
-int cgic_gn_moments(const void* x, void* mom, int B, int C, long long HW, int dtype,
-                    void* stream) {
-  if (B <= 0 || C <= 0 || HW <= 0 || B > 65535) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<bf16>(x, mom, B, C, HW, s);
-  if (dtype == 0) return launch<float>(x, mom, B, C, HW, s);
+// a: x, mom, B, C, HW, dtype (0 = float32, 1 = bfloat16), stream, as one block of
+// int64 (the pointers as integers), so that the Python wrapper converts one argument.
+// Returns 0 or a cudaError_t code; -1 for arguments the kernel does not take.
+int cgic_gn_moments(const long long* a) {
+  const long long B = a[2], C = a[3], HW = a[4], dtype = a[5];
+  if (B <= 0 || B > 65535 || C <= 0 || C > 0x7fffffffLL || HW <= 0) return -1;
+  const void* x = reinterpret_cast<const void*>(a[0]);
+  void* mom = reinterpret_cast<void*>(a[1]);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(a[6]);
+  if (dtype == 1) return launch<bf16>(x, mom, (int)B, (int)C, HW, s);
+  if (dtype == 0) return launch<float>(x, mom, (int)B, (int)C, HW, s);
   return -1;
 }
 

@@ -17,22 +17,26 @@ tensors, inside `_GnMomentsFn` where x needs a gradient, and runs
 `spatial_norm` is JAX's dispatch, read at call time, with the H100 in the
 TPU's place:
   - CONTROL_GIC_FUSED_NORM set: the moment pass, then the apply kernel
-    kernels/spatial_norm_apply.cu (JAX `_fused_forward`), whose plain
-    version is `spatial_norm_kernel_act` (f32, dot-form modulation);
-  - CONTROL_GIC_STATS_KERNEL set: the moment pass, then that torch apply
-    (JAX `_stats_only_forward`);
+    kernels/spatial_norm_apply.cu (JAX `_fused_forward`), which folds the
+    moments into the group stats itself (two launches in all). Its plain
+    version is `spatial_norm_kernel_act` (f32, dot-form modulation) on
+    `gn_stats_from_moments`; `spatial_norm_apply_replay` replays its order
+    of operations on the CPU;
+  - CONTROL_GIC_STATS_KERNEL set: the moment pass, then the torch fold and
+    that torch apply (JAX `_stats_only_forward`);
   - otherwise, or where `_row_block` finds no block, `spatial_norm_reference`.
 Both switched paths run inside `_SpatialNormFn` (JAX `_make_fused`) where a
 gradient is needed; its backward differentiates `spatial_norm_reference`.
 """
 from __future__ import annotations
 
-import ctypes
 import os
+import struct
 from typing import Tuple
 
 import torch
 
+from ..kernels import build
 from . import use_kernel
 
 GROUPS = 32
@@ -70,6 +74,24 @@ def gn_moments_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))], dim=1)
 
 
+def _launch(t: torch.Tensor, fn, args: struct.Struct, *values) -> int:
+    """fn(block) on t's device, block the values and the raw current stream
+    of that device packed as int64 (the launchers' one argument: ctypes then
+    converts one argument, not eleven). The device is entered only when it
+    is not the current one, so that the kernel always launches where t
+    lies."""
+    idx = t.get_device()
+    if idx == torch._C._cuda_getDevice():
+        return fn(args.pack(*values, torch._C._cuda_getCurrentRawStream(idx)))
+    with torch.cuda.device(idx):
+        return fn(args.pack(*values, torch._C._cuda_getCurrentRawStream(idx)))
+
+
+_MOMENT_ARGS = struct.Struct("7q")     # x, mom, B, C, HW, dtype, stream
+_APPLY_ARGS = struct.Struct("11q")     # f, zq, mom, par, out, B, C, HW,
+                                       # dtype, swish, stream
+
+
 def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA moment kernel. CUDA tensors only: anything the kernel
     does not take raises, and a failed build or launch raises."""
@@ -77,10 +99,11 @@ def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("gn_moments_kernel launches a CUDA kernel and takes "
                          "CUDA tensors only; use gn_moments() or "
                          "gn_moments_reference() for CPU tensors")
-    if x.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"gn_moments_kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if torch.is_grad_enabled() and x.requires_grad:
+    if x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("gn_moments_kernel records no gradient; under "
                            "grad call gn_moments()")
     if x.dim() != 4 or x.numel() == 0:
@@ -91,16 +114,12 @@ def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     if b > 65535:
         raise ValueError(f"batch {b} is above the kernel's grid limit 65535")
-    from ..kernels import build
-    lib = build.load("gn_moments")
-    mom = torch.empty(b, 2, c, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.cgic_gn_moments(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(mom.data_ptr()),
-            ctypes.c_int(b), ctypes.c_int(c), ctypes.c_longlong(h * w),
-            ctypes.c_int(_DTYPE_CODE[x.dtype]), ctypes.c_void_p(stream))
-    build.check(lib, rc, "gn_moments")
+    mom = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    rc = _launch(x, build.function("gn_moments", "cgic_gn_moments"),
+                 _MOMENT_ARGS, x.data_ptr(), mom.data_ptr(), b, c, h * w,
+                 code)
+    if rc:
+        build.check(build.load("gn_moments"), rc, "gn_moments")
     KERNEL_LAUNCHES["gn_moments"] += 1
     return mom
 
@@ -247,77 +266,159 @@ def spatial_norm_kernel_act(x: torch.Tensor, zq_r: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a*b + c rounded once to f32, as a CUDA fmaf (the product is exact in
+    f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def spatial_norm_apply_replay(f: torch.Tensor, zq_r: torch.Tensor,
+                              gs: torch.Tensor, gb: torch.Tensor,
+                              wy: torch.Tensor, by: torch.Tensor,
+                              wb: torch.Tensor, bb: torch.Tensor,
+                              mom: torch.Tensor, act_swish: bool
+                              ) -> torch.Tensor:
+    """CPU replay of kernels/spatial_norm_apply.cu's order of operations in
+    f32: the group fold of the moments [B, 2, C] (the group's channels summed
+    in channel order), the per-channel coefficients s = rstd*gamma, t = beta -
+    mean*s, a = (s*by, s*wy), b = (t*by + bb, t*wy + wb), then per element
+    x*(a0 + sum_z zq_z*a_z) + (b0 + sum_z zq_z*b_z) by FMAs, the swish with an
+    exact sigmoid (the kernel's is fast), rounded to f's dtype. wy, wb:
+    [C, Z]."""
+    b, c, h, w = f.shape
+    cg = c // GROUPS
+    m = mom.float().reshape(b, 2, GROUPS, cg)
+    s1, s2 = m[:, 0, :, 0], m[:, 1, :, 0]
+    for j in range(1, cg):
+        s1, s2 = s1 + m[:, 0, :, j], s2 + m[:, 1, :, j]
+    n = float(h * w * cg)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + EPS)
+    mean, rstd = (mean.repeat_interleave(cg, 1), rstd.repeat_interleave(cg, 1))
+    f32 = lambda t: t.float().expand(b, c)
+    s = rstd * f32(gs)
+    t = _fma(-mean, s, f32(gb))
+    ka = [s * f32(by)] + [s * f32(wy[:, z]) for z in range(4)]
+    kb = [_fma(t, f32(by), f32(bb))] + [_fma(t, f32(wy[:, z]), f32(wb[:, z]))
+                                        for z in range(4)]
+    zf = zq_r.float()
+    a, bm = _col(ka[0]), _col(kb[0])
+    for z in range(4):
+        a = _fma(zf[:, z:z + 1], _col(ka[1 + z]), a)
+        bm = _fma(zf[:, z:z + 1], _col(kb[1 + z]), bm)
+    out = _fma(f.float(), a, bm)
+    if act_swish:
+        out = out * torch.sigmoid(out)
+    return out.to(f.dtype)
+
+
 # ------------------------------------------------------ the apply kernel
+
+def _packed_params(gs, gb, wy, by, wb, bb, dev) -> torch.Tensor:
+    """The apply kernel's parameters, [4 + 2Z, C] f32 on dev: gamma, beta,
+    by, bb, then wy and wb as [Z, C]; made once per version of the weights
+    (norm_conv._cached: an in-place update, an optimizer step or
+    load_state_dict, makes it anew). SpatialNorm passes its 1x1 conv weights
+    as weight[:, :, 0, 0], a view made on every call, so a view is keyed by
+    its base and where it lies in it."""
+    from .norm_conv import _cached           # norm_conv imports this module
+
+    def pack():
+        c = gs.shape[0]
+        for t, shape, name in ((gs, (c,), "gs"), (gb, (c,), "gb"),
+                               (wy, (c, 4), "wy"), (by, (c,), "by"),
+                               (wb, (c, 4), "wb"), (bb, (c,), "bb")):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected shape {shape}, got "
+                                 f"{tuple(t.shape)}")
+        f32 = lambda t: t.detach().to(dev, torch.float32)
+        return torch.cat([torch.stack([f32(gs), f32(gb), f32(by), f32(bb)]),
+                          f32(wy).t(), f32(wb).t()]).contiguous()
+
+    yb, bbase = wy._base, wb._base
+    if yb is None and bbase is None:
+        return _cached((gs, gb, wy, by, wb, bb), (dev,), pack)
+    roots = (gs, gb, wy if yb is None else yb, by,
+             wb if bbase is None else bbase, bb)
+    return _cached(roots, (dev, wy.data_ptr(), wy.shape, wy.stride(),
+                           wb.data_ptr(), wb.shape, wb.stride()), pack)
+
 
 def spatial_norm_apply_kernel(f: torch.Tensor, zq_r: torch.Tensor,
                               gs: torch.Tensor, gb: torch.Tensor,
                               wy: torch.Tensor, by: torch.Tensor,
                               wb: torch.Tensor, bb: torch.Tensor,
-                              stats: Stats, act_swish: bool) -> torch.Tensor:
-    """Launch the CUDA SpatialNorm apply kernel with the given per-channel
-    stats (mean_c, rstd_c) [B, C]. f: [B, C, H, W] f32 or bf16; zq_r:
-    [B, 4, H, W] in f's dtype; wy, wb: [C, 4]. CUDA tensors only: anything
-    the kernel does not take raises, and a failed build or launch raises."""
+                              mom: torch.Tensor, act_swish: bool
+                              ) -> torch.Tensor:
+    """Launch the CUDA SpatialNorm apply kernel, which folds the GroupNorm
+    moments mom [B, 2, C] f32 (gn_moments) into the per-channel stats
+    itself. f: [B, C, H, W] f32 or bf16, C a multiple of 32 up to 2048;
+    zq_r: [B, 4, H, W] in f's dtype; wy, wb: [C, 4]. CUDA tensors only:
+    anything the kernel does not take raises, and a failed build or launch
+    raises."""
     if not f.is_cuda:
         raise ValueError("spatial_norm_apply_kernel launches a CUDA kernel and "
                          "takes CUDA tensors only; use spatial_norm() for CPU "
                          "tensors")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (f, zq_r, gs, gb, wy, by, wb, bb, *stats)):
-        raise RuntimeError("spatial_norm_apply_kernel records no gradient; "
-                           "under grad call spatial_norm()")
-    if f.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(f.dtype)
+    if code is None:
         raise TypeError(f"spatial_norm_apply_kernel takes float32 or bfloat16,"
                         f" got {f.dtype}")
+    if torch.is_grad_enabled() and (
+            f.requires_grad or zq_r.requires_grad or mom.requires_grad
+            or gs.requires_grad or gb.requires_grad or wy.requires_grad
+            or by.requires_grad or wb.requires_grad or bb.requires_grad):
+        raise RuntimeError("spatial_norm_apply_kernel records no gradient; "
+                           "under grad call spatial_norm()")
     if f.dim() != 4 or f.numel() == 0:
         raise ValueError(f"expected a non-empty [B, C, H, W] tensor, got "
                          f"{tuple(f.shape)}")
     b, c, h, w = f.shape
-    if tuple(zq_r.shape) != (b, 4, h, w) or zq_r.dtype != f.dtype:
+    if c % GROUPS or c > 64 * GROUPS or b > 65535:
+        raise ValueError(f"spatial_norm_apply_kernel takes C a multiple of 32 "
+                         f"up to 2048 and B up to 65535, got {tuple(f.shape)}")
+    dev = f.device
+    if zq_r.shape != (b, 4, h, w) or zq_r.dtype != f.dtype:
         raise ValueError(f"zq_r: expected [{b}, 4, {h}, {w}] {f.dtype}, got "
                          f"{tuple(zq_r.shape)} {zq_r.dtype}")
-    for t, name in ((f, "f"), (zq_r, "zq_r")):
-        if t.device != f.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: needs a contiguous, 16-byte aligned "
-                             f"tensor on {f.device}")
-    if b > 65535:
-        raise ValueError(f"batch {b} is above the kernel's grid limit 65535")
-    dev = f.device
-    f32 = lambda t: t.to(dev, torch.float32).contiguous()
-    # every tensor whose pointer the kernel gets stays referenced until the
-    # launch is enqueued
-    params = [f32(stats[0]), f32(stats[1]), f32(gs), f32(gb), f32(wy.t()),
-              f32(by), f32(wb.t()), f32(bb)]
-    shapes = [(b, c), (b, c), (c,), (c,), (4, c), (c,), (4, c), (c,)]
-    for t, shape in zip(params, shapes):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"a norm parameter or stat has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-    from ..kernels import build
-    lib = build.load("spatial_norm_apply")
+    fp, zp = f.data_ptr(), zq_r.data_ptr()
+    if (zq_r.device != dev or not (f.is_contiguous() and zq_r.is_contiguous())
+            or (fp | zp) % 16):
+        raise ValueError(f"f and zq_r: need contiguous, 16-byte aligned "
+                         f"tensors on {dev}")
+    if (mom.shape != (b, 2, c) or mom.dtype != torch.float32
+            or mom.device != dev or not mom.is_contiguous()):
+        raise ValueError(f"mom: expected a contiguous [{b}, 2, {c}] float32 "
+                         f"tensor on {dev}, got {tuple(mom.shape)} "
+                         f"{mom.dtype} on {mom.device}")
+    par = _packed_params(gs, gb, wy, by, wb, bb, dev)
+    if par.shape[1] != c:
+        raise ValueError(f"the norm parameters have {par.shape[1]} channels, "
+                         f"f has {c}")
     out = torch.empty_like(f)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cgic_spatial_norm_apply(
-            ptr(f), ptr(zq_r), *map(ptr, params), ptr(out), ctypes.c_int(b),
-            ctypes.c_int(c), ctypes.c_longlong(h * w),
-            ctypes.c_int(_DTYPE_CODE[f.dtype]), ctypes.c_int(int(act_swish)),
-            ctypes.c_void_p(stream))
-    build.check(lib, rc, "spatial_norm_apply")
+    rc = _launch(f, build.function("spatial_norm_apply",
+                                   "cgic_spatial_norm_apply"), _APPLY_ARGS,
+                 fp, zp, mom.data_ptr(), par.data_ptr(), out.data_ptr(), b,
+                 c, h * w, code, int(act_swish))
+    if rc:
+        build.check(build.load("spatial_norm_apply"), rc,
+                    "spatial_norm_apply")
     KERNEL_LAUNCHES["spatial_norm_apply"] += 1
     return out
 
 
 def _fused_forward(f, zq_r, gs, gb, wy, by, wb, bb, act_swish: bool,
                    stats_only: bool) -> torch.Tensor:
-    """The moment pass and its fold, then the apply: the kernel for a CUDA
-    tensor (JAX `_fused_forward`), or with stats_only and on the CPU its
-    plain version (JAX `_stats_only_forward`)."""
-    stats = gn_stats_from_moments(gn_moments(f), f.shape[2] * f.shape[3])
+    """The moment pass, then the apply: for a CUDA tensor the kernel, which
+    folds the moments itself (JAX `_fused_forward`: two launches), or with
+    stats_only and on the CPU the torch fold and its plain version (JAX
+    `_stats_only_forward`)."""
+    mom = gn_moments(f)
     if use_kernel(f) and not stats_only:
-        return spatial_norm_apply_kernel(f, zq_r, gs, gb, wy, by, wb, bb,
-                                         stats, act_swish)
+        return spatial_norm_apply_kernel(f, zq_r, gs, gb, wy, by, wb, bb, mom,
+                                         act_swish)
+    stats = gn_stats_from_moments(mom, f.shape[2] * f.shape[3])
     return spatial_norm_kernel_act(f, zq_r, gs, gb, wy, by, wb, bb,
                                    act_swish, stats)
 

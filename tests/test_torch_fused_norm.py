@@ -89,6 +89,70 @@ def test_apply_matches_fused_forward(b, h, w, c, act_swish, dtype):
     _close(got, want, dtype)
 
 
+# the shapes above, and C = 32 (one channel a group)
+REPLAY_SHAPES = [(2, 16, 16, 128), (1, 24, 40, 256), (1, 12, 20, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act_swish", [True, False], ids=["swish", "plain"])
+@pytest.mark.parametrize("b, h, w, c", REPLAY_SHAPES)
+def test_apply_replay_matches_fused_forward(b, h, w, c, act_swish, dtype):
+    """The apply kernel's order of operations (the group fold inside, the
+    coefficient form) replayed on the CPU from the moments, against JAX
+    `_fused_forward` (Pallas interpret)."""
+    a = _inputs(c + h + w, b, h, w, c)
+    want = jfn._fused_forward(*_jax_args(a, dtype), act_swish,
+                              interpret=True)
+    args = _port_args(a, dtype)
+    mom = tfn.gn_moments_reference(args[0])
+    got = tfn.spatial_norm_apply_replay(*args, mom, act_swish)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, c, h, w)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, h, w, c", REPLAY_SHAPES)
+def test_apply_replay_matches_plain_version(b, h, w, c, dtype):
+    """The replay against the apply kernel's plain version,
+    spatial_norm_kernel_act on the torch fold of the same moments."""
+    a = _inputs(3 * c + h, b, h, w, c)
+    args = _port_args(a, dtype)
+    mom = tfn.gn_moments_reference(args[0])
+    want = tfn.spatial_norm_kernel_act(
+        *args, True, tfn.gn_stats_from_moments(mom, h * w))
+    got = tfn.spatial_norm_apply_replay(*args, mom, True)
+    _close(got, nhwc(want), dtype)
+
+
+def test_parameter_pack_is_made_once_per_weight_version():
+    """The apply kernel's packed parameters: the same weights (the 1x1 conv
+    weights as the fresh [C, Z] views SpatialNorm passes) give the same
+    packed tensor; an in-place update of a weight makes it anew."""
+    from control_gic_tpu_torch.models.blocks import SpatialNorm
+
+    norm = SpatialNorm(64, 4)
+    with torch.no_grad():
+        for p in norm.parameters():
+            p.normal_()
+    pack = lambda: tfn._packed_params(*norm.params(), torch.device("cpu"))
+    first = pack()
+    assert pack() is first
+    gs, gb, wy, by, wb, bb = norm.params()
+    assert torch.equal(first, torch.cat([torch.stack([gs, gb, by, bb]),
+                                         wy.t(), wb.t()]))
+    with torch.no_grad():
+        norm.conv_y.weight.add_(1)
+    second = pack()
+    assert second is not first
+    assert torch.equal(second[4:8], first[4:8] + 1)
+    assert torch.equal(second[:4], first[:4])
+    with torch.no_grad():
+        norm.norm_layer.weight.add_(1)
+    third = pack()
+    assert third is not second and torch.equal(third[0], second[0] + 1)
+    assert pack() is third
+
+
 @pytest.mark.parametrize("stats_only", [False, True],
                          ids=["fused", "stats_only"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -119,9 +183,10 @@ def cpu_kernels(monkeypatch):
         calls["gn_moments"] += 1
         return tfn.gn_moments_reference(x)
 
-    def apply(f, zq_r, gs, gb, wy, by, wb, bb, stats, act_swish):
+    def apply(f, zq_r, gs, gb, wy, by, wb, bb, mom, act_swish):
         assert not torch.is_grad_enabled()
         calls["spatial_norm_apply"] += 1
+        stats = tfn.gn_stats_from_moments(mom, f.shape[2] * f.shape[3])
         return tfn.spatial_norm_kernel_act(f, zq_r, gs, gb, wy, by, wb, bb,
                                            act_swish, stats)
 

@@ -648,10 +648,10 @@ def test_stats_kernel_switch_launches_only_the_moments(cuda, monkeypatch):
 
 def test_spatial_norm_apply_refuses_what_it_does_not_take(cuda):
     a = _chain_inputs(cuda, 1, 64, 8, 8, 16, torch.float32, 2)
-    stats = NC.stats_from_moments(FN.gn_moments(a["x"]), 128)
+    mom = FN.gn_moments(a["x"])
     call = lambda **kw: FN.spatial_norm_apply_kernel(**{
         **dict(f=a["x"], zq_r=a["zq_r"], gs=a["gs"], gb=a["gb"], wy=a["wy"],
-               by=a["by"], wb=a["wb"], bb=a["bb"], stats=stats,
+               by=a["by"], wb=a["wb"], bb=a["bb"], mom=mom,
                act_swish=True), **kw})
     with pytest.raises(TypeError):
         call(f=a["x"].half())
@@ -665,3 +665,92 @@ def test_spatial_norm_apply_refuses_what_it_does_not_take(cuda):
         call(f=a["x"].cpu())
     with pytest.raises(RuntimeError, match="gradient"):
         call(gs=a["gs"].clone().requires_grad_())
+    with pytest.raises(ValueError, match="mom"):
+        call(mom=mom[:, :, :32].contiguous())
+    x32 = a["x"][:, :32].contiguous()
+    with pytest.raises(ValueError, match="channels"):
+        call(f=x32, mom=FN.gn_moments(x32))
+
+
+def _apply_kernel_inputs(device, b, c, h, w, dtype, seed):
+    """The apply kernel's inputs, each image of the batch with its own
+    offset and scale (so its own moments)."""
+    a = _chain_inputs(device, b, c, 8, h, w, dtype, seed)
+    k = torch.arange(b, device=device, dtype=torch.float32)[:, None, None,
+                                                            None]
+    a["x"] = ((1 + 2 * k) * a["x"].float() + 0.5 * k).to(dtype)
+    return a
+
+
+def _apply_kernel_call(a, mom, act_swish):
+    return FN.spatial_norm_apply_kernel(
+        a["x"], a["zq_r"], a["gs"], a["gb"], a["wy"], a["by"], a["wb"],
+        a["bb"], mom, act_swish)
+
+
+@pytest.mark.parametrize("act_swish", [True, False], ids=["swish", "plain"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b, c, h, w", [
+    (1, 32, 64, 64), (1, 128, 40, 24), (1, 256, 24, 32), (1, 512, 64, 64),
+    (2, 512, 16, 24), (2, 128, 13, 9), (2, 32, 3, 5)])
+def test_apply_kernel_folds_the_moments(cuda, act_swish, dtype, b, c, h, w):
+    """The apply kernel fed the moments, against its plain version on the
+    torch fold of the same moments and against the CPU replay of its order;
+    B = 2 with different moments per image; ragged planes (13x9, 3x5) take
+    the scalar path; two launches give bit-equal outputs."""
+    a = _apply_kernel_inputs(cuda, b, c, h, w, dtype, 5 * c + h + b)
+    mom = FN.gn_moments_reference(a["x"])
+    before = dict(FN.KERNEL_LAUNCHES)
+    got = _apply_kernel_call(a, mom, act_swish)
+    torch.cuda.synchronize()
+    assert FN.KERNEL_LAUNCHES == {
+        **before, "spatial_norm_apply": before["spatial_norm_apply"] + 1}
+    p = [a[n] for n in ("gs", "gb", "wy", "by", "wb", "bb")]
+    want = FN.spatial_norm_kernel_act(
+        a["x"], a["zq_r"], *p, act_swish, FN.gn_stats_from_moments(mom, h * w))
+    replay = FN.spatial_norm_apply_replay(a["x"], a["zq_r"], *p, mom,
+                                          act_swish)
+    assert got.shape == (b, c, h, w) and got.dtype == dtype
+    assert _rel_err(got, want) <= OUT_TOL[dtype]
+    assert _rel_err(got, replay) <= OUT_TOL[dtype]
+    if b == 2:                       # the images' outputs differ in scale
+        assert _rel_err(got[1:], want[1:]) <= OUT_TOL[dtype]
+    assert torch.equal(got, _apply_kernel_call(a, mom, act_swish))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", ["f", "zq_r"])
+def test_apply_kernel_refuses_a_misaligned_base(cuda, dtype, name):
+    """A tensor that starts off a 16-byte boundary raises in the wrapper;
+    nothing launches."""
+    a = _apply_kernel_inputs(cuda, 1, 64, 8, 16, dtype, 4)
+    mom = FN.gn_moments_reference(a["x"])
+    key = "x" if name == "f" else "zq_r"
+    t = a[key]
+    shifted = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+    shifted.copy_(t.reshape(-1))
+    a[key] = shifted.view(t.shape)
+    assert a[key].is_contiguous() and a[key].data_ptr() % 16
+    before = dict(FN.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        _apply_kernel_call(a, mom, True)
+    assert FN.KERNEL_LAUNCHES == before
+
+
+def test_moment_wrapper_counts_one_launch_a_call(cuda):
+    """The moment wrapper adds one to its count for each launch, and the
+    switched SpatialNorm launches one moment pass and one apply."""
+    x = torch.randn(2, 128, 16, 24, device=cuda).bfloat16()
+    before = dict(FN.KERNEL_LAUNCHES)
+    moms = [FN.gn_moments_kernel(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert FN.KERNEL_LAUNCHES == {**before,
+                                  "gn_moments": before["gn_moments"] + 3}
+    assert torch.equal(moms[0], moms[2])
+    a = _apply_kernel_inputs(cuda, 2, 128, 16, 24, torch.bfloat16, 9)
+    _apply(a, True)
+    assert FN.KERNEL_LAUNCHES == {
+        "gn_moments": before["gn_moments"] + 4,
+        "spatial_norm_apply": before["spatial_norm_apply"] + 1}
