@@ -38,12 +38,28 @@ Phases, each printing a line of its own:
      SpatialNorm apply kernel, launch counts and a profile;
  10. high-res tiled codec: cli/infer_highres.main on a 1356x2040 PNG (the
      DIV2K shape class; the CLI crops it to 1344x2032, 6 tiles of 768 px in 4
-     shape groups) at full width in bf16, under the default switches, under
-     CONTROL_GIC_CHAIN=0 + CONTROL_GIC_NORM_CONV=1 and under
+     shape groups) at full width in bf16 through the CLI's default path, the
+     pipeline (parallel/tiling.compress_tiled_device), under the default
+     switches, under CONTROL_GIC_CHAIN=0 + CONTROL_GIC_NORM_CONV=1 and under
      CONTROL_GIC_FUSED_NORM=1, each with bpp, PSNR, ms per image and exact
-     launch counts, each profiled (kernels per image);
+     launch counts, each profiled (kernels per image); then once with
+     --no-pipeline (the per-tile path) under the default switches: the same
+     launches, the same bpp to the last digit, PNGs within 1 of 255;
  11. tile f32: one 768x768 tile through the f32 model with all three
-     switches set, kernels against ops.plain_versions().
+     switches set, kernels against ops.plain_versions();
+ 12. entropy and pipeline (the phase-4 codec, full width, bf16): 256x256 in
+     all 7 modes, encode(device_pack=True) streams byte-identical to the
+     host coder's; eight 512x768 images from distinct seeds in 4 batches of
+     2 through roundtrip_pipelined(device_pack=True, threads=True) and
+     through serial encode_batch / decode_batch: the same streams, recons
+     within 1e-3, exact launches (a launch serves a batch: 4 x phase 5's
+     per-image counts each way), ms per image both ways, the stage seconds
+     and a profile of the pipelined run; three 1356x2040 images (cropped to
+     1344x2032 as the CLI does) through compress_tiled_device(threads=True)
+     and compress_tiled per image: the same streams, exact launches (3 x
+     the default's tiled counts), ms per image, stage seconds, a profile;
+     entropy seconds per Kodak image with the C++ coder and the pure-Python
+     coders (the phase fails unless the C++ coder is loaded).
 Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
 and dq backward), the SpatialNorm apply and the per-call norm+conv, and the
 gradients of the chain, the per-call op, the switched SpatialNorm and the
@@ -427,11 +443,15 @@ def device_us_per_launch(fn, n: int = 5):
     in a window of n calls (for the flash forward, the main kernel and,
     under split KV, the combine; for the dk/dv backward, the delta pre-pass
     and the kernel), over n; None where the profiler recorded no device
-    events. The CUDA-event time around the wrapper also holds the wrapper's
-    host work, which hides short kernels."""
+    events in three windows. The CUDA-event time around the wrapper also
+    holds the wrapper's host work, which hides short kernels."""
     fn()
-    _, busy, _, by_name = device_profile(lambda: [fn() for _ in range(n)])
-    return None if busy is None else sum(by_name.values()) / n
+    for _ in range(3):   # a window now and then records no device events
+        _, busy, _, by_name = device_profile(lambda: [fn() for _ in
+                                                      range(n)])
+        if busy is not None:
+            return sum(by_name.values()) / n
+    return None
 
 
 def flash_splits(b, tq, tk, c, dt) -> int:
@@ -1349,9 +1369,10 @@ def tiled_expected(setting: str, h: int, w: int) -> dict:
 
 def phase_tiled(dev: dict, codec, workdir: str) -> dict:
     """Phase 10: the high-res CLI on one 1356x2040 PNG under each setting of
-    TILED_SETTINGS, after an untimed warm-up run; bpp, PSNR, ms per image
-    and exact launches; a profile of the first two settings. Returns each
-    setting's launches."""
+    TILED_SETTINGS through its default path (the pipeline), after an
+    untimed warm-up run, then once with --no-pipeline under the default
+    switches; bpp, PSNR, ms per image and exact launches; a profile of each
+    setting. Returns each setting's launches."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1365,24 +1386,30 @@ def phase_tiled(dev: dict, codec, workdir: str) -> dict:
     Image.fromarray((img * 255).astype(np.uint8)).save(
         os.path.join(src, "div2k_shape.png"))
     ch, cw = h // 16 * 16, w // 16 * 16
-    run = lambda out: infer_highres.main(
+    run = lambda out, *extra: infer_highres.main(
         ["-i", src, "-o", os.path.join(workdir, out), "--tile", str(TILE),
-         "--ratios", "0.1", "0.4"], codec=codec)
+         "--ratios", "0.1", "0.4", *extra], codec=codec)
     run("hr_warmup")
+    run("hr_warmup_per_tile", "--no-pipeline")
     torch.cuda.synchronize()
-    launches = {}
-    for setting, env in TILED_SETTINGS.items():
+    launches, bpps = {}, {}
+    for setting, env in [*TILED_SETTINGS.items(), ("no_pipeline", {})]:
+        extra = ["--no-pipeline"] if setting == "no_pipeline" else []
         with switches(**env):
             reset_launches()
             t0 = time.perf_counter()
-            (_, bpp, psnr, _), = run(f"hr_{setting}")
+            (_, bpp, psnr, _), = run(f"hr_{setting}", *extra)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             launches[setting] = read_launches()
-            expected = tiled_expected(setting, ch, cw)
+            bpps[setting] = bpp
+            expected = tiled_expected(
+                "default" if setting == "no_pipeline" else setting, ch, cw)
             log(f"tiled {setting}", image=[h, w], cropped_to=[ch, cw],
-                tile=TILE, switches=env, bpp=bpp, psnr_db=psnr,
-                ms_per_image=ms, launches=launches[setting],
+                tile=TILE, switches=env,
+                path="per-tile" if extra else "pipeline", bpp=bpp,
+                psnr_db=psnr, ms_per_image=ms, launches=launches[setting],
+                stats=None if extra else codec.last_pipeline_stats,
                 card=dev["nvidia_smi"])
             if launches[setting] != expected:
                 raise AssertionError(f"tiled {setting}: launches "
@@ -1392,7 +1419,21 @@ def phase_tiled(dev: dict, codec, workdir: str) -> dict:
                 raise AssertionError(f"tiled {setting}: bpp {bpp}, PSNR "
                                      f"{psnr}")
             log_profile(dev, f"tiled {setting}", 1,
-                        *device_profile(lambda: run("hr_prof")))
+                        *device_profile(lambda: run("hr_prof", *extra)))
+    if bpps["no_pipeline"] != bpps["default"]:
+        raise AssertionError(f"tiled: --no-pipeline bpp "
+                             f"{bpps['no_pipeline']!r} != the pipeline's "
+                             f"{bpps['default']!r}")
+    png = lambda d: np.asarray(Image.open(os.path.join(
+        workdir, d, f"000_{bpps['default']:0.5f}.png")), np.int16)
+    diff = np.abs(png("hr_default") - png("hr_no_pipeline"))
+    log("tiled pipeline vs per-tile", bpp=bpps["default"],
+        png_max_abs_diff=int(diff.max()),
+        png_values_differing=int((diff > 0).sum()),
+        png_pixels_differing=int((diff > 0).any(-1).sum()))
+    if diff.max() > 1:
+        raise AssertionError(f"tiled: the pipeline's PNG differs from the "
+                             f"per-tile path's by {int(diff.max())} of 255")
     return launches
 
 
@@ -1426,6 +1467,182 @@ def phase_tile_f32(image) -> None:
     if got["indices_differing_beyond_ties"]:
         raise AssertionError(f"tile f32: VQ indices differ beyond near-ties: "
                              f"{got}")
+
+# phase 12: the pipelined codec at the Kodak size, 4 batches of 2
+PIPE_BATCHES, PIPE_BATCH = 4, 2
+TILED_IMAGES = 3
+
+
+def _streams(batches) -> list:
+    return [e.streams for encs in batches for e in encs]
+
+
+def phase_entropy_pipeline(dev: dict, codec) -> None:
+    """Phase 12: device packing against the host coder (256x256, 7 modes),
+    roundtrip_pipelined against serial batches (512x768), the tiled
+    pipeline against compress_tiled (1356x2040 cropped to 1344x2032), and
+    the entropy coders' seconds per Kodak image, C++ against Python."""
+    import numpy as np
+    import torch
+
+    from control_gic_tpu_torch.coding.native_lib import get_native
+    from control_gic_tpu_torch.parallel.tiling import (compress_tiled,
+                                                       compress_tiled_device)
+
+    if get_native() is None or codec.huffman._native is None:
+        raise AssertionError("phase 12: the C++ entropy coder is not loaded")
+    if codec._device_tables is None:
+        raise AssertionError("phase 12: the table has codes above 32 bits")
+
+    # 1. device packing = host coding, 256x256, all 7 modes
+    t0 = time.perf_counter()
+    img = make_image(0)
+    for mode, ratios in enumerate(RATIOS):
+        host = codec.encode(img, *ratios)
+        packed = codec.encode(img, *ratios, device_pack=True)
+        if packed.mode != mode or packed.streams != host.streams:
+            raise AssertionError(f"phase 12: device-packed streams differ "
+                                 f"from the host coder's in mode {mode}")
+    log("device pack 256x256", modes=7, byte_identical=True,
+        seconds=time.perf_counter() - t0)
+
+    # 2. roundtrip_pipelined against serial batches, 512x768
+    batches = [np.stack([make_image(100 + PIPE_BATCH * b + j, KODAK)
+                         for j in range(PIPE_BATCH)])
+               for b in range(PIPE_BATCHES)]
+    n_img = PIPE_BATCHES * PIPE_BATCH
+    per_batch = PER_IMAGE[KODAK]
+    expected = {k: v * PIPE_BATCHES for k, v in per_batch.items()}
+    pipelined = lambda: codec.roundtrip_pipelined(
+        batches, *RATIOS[0], device_pack=True, threads=True)
+
+    def serial():
+        encs = [codec.encode_batch(b, *RATIOS[0], device_pack=True)
+                for b in batches]
+        return [codec.decode_batch(e) for e in encs], encs
+
+    pipelined()
+    serial()                                     # warm-ups, not counted
+    torch.cuda.synchronize()
+    runs = {}
+    for name, fn in (("pipelined", pipelined), ("serial", serial)):
+        reset_launches()
+        t0 = time.perf_counter()
+        recs, encs = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n_img
+        launches = read_launches()
+        if launches != expected:
+            raise AssertionError(f"phase 12 {name}: launches {launches}, "
+                                 f"expected {expected}")
+        runs[name] = (recs, encs, ms)
+        if name == "pipelined":
+            stats = dict(codec.last_pipeline_stats)
+    recs_p, encs_p, ms_p = runs["pipelined"]
+    recs_s, encs_s, ms_s = runs["serial"]
+    if _streams(encs_p) != _streams(encs_s):
+        raise AssertionError("phase 12: pipelined streams differ from the "
+                             "serial ones")
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(recs_p, recs_s))
+    if not diff <= 1e-3 or not all(np.isfinite(r).all() for r in recs_p):
+        raise AssertionError(f"phase 12: pipelined recons differ from the "
+                             f"serial ones by {diff}")
+    stage_sum = sum(v for k, v in stats.items() if k.endswith("_s")
+                    and k != "wall_s")
+    log("pipeline 512x768", images=n_img, batches=PIPE_BATCHES,
+        batch=PIPE_BATCH, ms_per_image_pipelined=ms_p,
+        ms_per_image_serial=ms_s, max_abs_diff=diff, launches=expected,
+        stats=stats, stage_seconds_sum=stage_sum,
+        overlap=stage_sum / stats["wall_s"], card=dev["nvidia_smi"])
+    log_profile(dev, "pipeline 512x768", n_img, *device_profile(pipelined))
+    log_profile(dev, "serial 512x768", n_img, *device_profile(serial))
+
+    # 3. the tiled pipeline against compress_tiled, 1356x2040 -> 1344x2032
+    h, w = HIGHRES
+    ch, cw = h // 16 * 16, w // 16 * 16
+    imgs_u8 = [(make_image(600 + i, (-(-h // 32) * 32, -(-w // 32) * 32))
+                [:ch, :cw] * 255).astype(np.uint8)
+               for i in range(TILED_IMAGES)]
+    imgs_f = [im.astype(np.float32) / 255.0 for im in imgs_u8]
+    tiled = lambda: compress_tiled_device(codec, imgs_u8, *RATIOS[0],
+                                          tile=TILE, threads=True)
+    per_image = lambda: [compress_tiled(codec, im, *RATIOS[0], tile=TILE)
+                         for im in imgs_f]
+    tiled()
+    torch.cuda.synchronize()
+    expected = {k: v * TILED_IMAGES
+                for k, v in tiled_expected("default", ch, cw).items()}
+    runs = {}
+    for name, fn in (("pipeline", tiled), ("per_tile", per_image)):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TILED_IMAGES
+        launches = read_launches()
+        if launches != expected:
+            raise AssertionError(f"phase 12 tiled {name}: launches "
+                                 f"{launches}, expected {expected}")
+        runs[name] = (res, ms)
+        if name == "pipeline":
+            stats = dict(codec.last_pipeline_stats)
+    (res_d, ms_d), (res_t, ms_t) = runs["pipeline"], runs["per_tile"]
+    for (rec_d, bpp_d, bun_d), (rec_t, bpp_t, bun_t) in zip(res_d, res_t):
+        if bpp_d != bpp_t or [b.streams for b in bun_d] != \
+                [b.streams for b in bun_t]:
+            raise AssertionError("phase 12: compress_tiled_device streams "
+                                 "differ from compress_tiled's")
+    quant = [(np.clip(r, 0, 1) * 255).astype(np.uint8) for r, _, _ in res_t]
+    px = max(int(np.abs(a[0].astype(np.int16) - b).max())
+             for a, b in zip(res_d, quant))
+    stage_sum = sum(v for k, v in stats.items() if k.endswith("_s")
+                    and k != "wall_s")
+    log("tiled pipeline 1344x2032", images=TILED_IMAGES,
+        ms_per_image_pipeline=ms_d, ms_per_image_per_tile=ms_t,
+        bpp=[r[1] for r in res_d], png_max_abs_diff_vs_per_tile=px,
+        launches=expected, stats=stats, stage_seconds_sum=stage_sum,
+        overlap=stage_sum / stats["wall_s"], card=dev["nvidia_smi"])
+    if px > 1:
+        raise AssertionError(f"phase 12: the tiled pipeline's pixels differ "
+                             f"from compress_tiled's by {px} of 255")
+    log_profile(dev, "tiled pipeline 1344x2032", TILED_IMAGES,
+                *device_profile(tiled))
+
+    # 4. entropy seconds per Kodak image, C++ against pure Python
+    kodak = [make_image(100 + i, KODAK) for i in range(4)]
+    arrays = [codec.encode_arrays(im[None], *RATIOS[0]) for im in kodak]
+    huff, bitmap = codec.huffman, codec.bitmap
+    streams_native, streams_py = [], []
+    t = {"native_encode_s": 0.0, "python_encode_s": 0.0,
+         "native_decode_s": 0.0, "python_decode_s": 0.0}
+    for (ind, m_c, m_m, m_f), mode in arrays:
+        ind, m_c, m_m, m_f = ind[0], m_c[0], m_m[0], m_f[0]
+        syms = [ind[::4, ::4][m_c == 1], ind[::2, ::2][m_m == 1],
+                ind[m_f == 1]]
+        bits = [m_c.reshape(-1), m_m.reshape(-1)]
+        t0 = time.perf_counter()
+        native = ([huff.encode(x) for x in syms]
+                  + [bitmap.encode(x) for x in bits])
+        t1 = time.perf_counter()
+        py = ([huff.encode_python(x) for x in syms]
+              + [bitmap.encode_python(x) for x in bits])
+        t2 = time.perf_counter()
+        dec_n = ([huff.decode_array(x).tolist() for x in native[:3]]
+                 + [bitmap.decode(x) for x in native[3:]])
+        t3 = time.perf_counter()
+        dec_p = ([huff.decode_python(x).tolist() for x in native[:3]]
+                 + [bitmap.decode_python(x) for x in native[3:]])
+        t4 = time.perf_counter()
+        if native != py or dec_n != dec_p:
+            raise AssertionError("phase 12: the C++ coder differs from the "
+                                 "Python coder")
+        for k, v in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            t[k] += v
+    log("entropy per Kodak image", images=len(kodak), native_loaded=True,
+        **{k.replace("_s", "_ms"): 1e3 * v / len(kodak)
+           for k, v in t.items()},
+        speedup_encode=t["python_encode_s"] / t["native_encode_s"],
+        speedup_decode=t["python_decode_s"] / t["native_decode_s"])
 
 
 TRAIN_BATCH = 2
@@ -1722,6 +1939,7 @@ def main() -> None:
                             PER_IMAGE_FUSED_NORM, " fused_norm1")
             phase_profile(dev, codec, images[:2], "256x256 fused_norm1")
         tiled = phase_tiled(dev, codec, workdir)
+    phase_entropy_pipeline(dev, codec)
     phase_f32_parity(make_image(0))
     phase_kodak_f32(codec, kodak[0])
     del codec

@@ -55,6 +55,11 @@ def build_codec(ckpt: Optional[str] = None,
 
 
 def save_png(path: str, img: np.ndarray) -> None:
+    """[H, W, 3] float in [0, 1] (clipped, * 255, truncated) or uint8
+    already quantized that way (out_uint8 on the device)."""
     from PIL import Image
-    arr = np.clip(np.asarray(img, np.float32), 0.0, 1.0)
-    Image.fromarray((arr * 255).astype(np.uint8)).save(path)
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img.astype(np.float32), 0.0, 1.0) * 255).astype(
+            np.uint8)
+    Image.fromarray(img).save(path)

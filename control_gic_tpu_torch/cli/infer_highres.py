@@ -5,18 +5,25 @@ inference_high_resolution.py).
 Usage:
   python -m control_gic_tpu_torch.cli.infer_highres -i <images_dir> \
       -o <out_dir> [--ckpt model.ckpt] [--ratios 0.1 0.4] [--tile 768] \
-      [--overlap 0] [-r 0 -1] [--device cuda|cpu]
+      [--overlap 0] [--no-pipeline] [--device_pack] [-r 0 -1] \
+      [--device cuda|cpu]
 
 Per image (center-cropped to /16 by the dataset, as in the JAX CLI): pad to
 /16, split into tiles, compress each tile independently (same-shape tiles
 batched), stitch, and log bpp (bits of all tiles over the original pixels)
 and PSNR to bpp.txt beside the reconstruction `NNN_<bpp>.png`.
 
-This runs JAX's per-tile path, `parallel.tiling.compress_tiled`, which gives
-the same streams and bpp as JAX's default threaded pipeline. The pipeline
-itself (`compress_tiled_device`, with device packing), the H-sharded codec
-and the mesh are not ported yet: --spatial, --mesh-devices and --device_pack
-raise, and --no-pipeline is accepted and changes nothing.
+By default (no overlap, a Huffman table the device packer takes) the images
+go through the wire-minimal pipeline, `parallel.tiling.
+compress_tiled_device`, in chunks of 8: each image up once as uint8, tiles
+sliced, encoded and packed on the device, the host entropy stage overlapped
+with the device by threads, the stitched reconstruction down once as uint8.
+--no-pipeline (or --overlap) runs the per-tile path, `compress_tiled`
+(--device_pack packs its streams on the device). Both give the same streams
+and bpp; the pipeline quantizes the reconstruction on the device as
+save_png does, so the PNGs agree to within a unit of 255.
+The H-sharded codec and the mesh are not ported yet: --spatial and
+--mesh-devices raise.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import time
 import numpy as np
 
 from ..data import EvalImageDataset
-from ..parallel.tiling import compress_tiled
+from ..parallel.tiling import compress_tiled, compress_tiled_device
 from ..utils.device import use_fp32_pipes
 from ..utils.metrics import psnr
 from .common import build_codec, save_png
@@ -37,9 +44,7 @@ from .common import build_codec, save_png
 UNPORTED = {"spatial": "--spatial needs the H-sharded codec (ROADMAP queue "
                        "1 item 14)",
             "mesh_devices": "--mesh-devices needs the tile mesh (ROADMAP "
-                            "queue 1 items 13-14)",
-            "device_pack": "--device_pack needs the device entropy paths "
-                           "(ROADMAP queue 1 item 11)"}
+                            "queue 1 items 13-14)"}
 
 
 def get_parser():
@@ -60,11 +65,14 @@ def get_parser():
     p.add_argument("--spatial", action="store_true",
                    help="not ported yet (raises)")
     p.add_argument("--device_pack", action="store_true",
-                   help="not ported yet (raises)")
+                   help="per-tile path: entropy-pack the tiles' streams on "
+                        "the device, with the encoder (byte-identical)")
     p.add_argument("--no-pipeline", action="store_true",
-                   help="the per-tile path, which is the only one the port "
-                        "has: the threaded device pipeline of the JAX CLI "
-                        "(compress_tiled_device) is not ported yet")
+                   help="run the per-tile path (compress_tiled) instead of "
+                        "the wire-minimal threaded pipeline "
+                        "(compress_tiled_device: one uint8 upload and one "
+                        "uint8 download per image, tiles sliced and "
+                        "stitched on the device)")
     p.add_argument("-r", "--images_range", type=int, nargs=2, default=(0, -1))
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
@@ -89,15 +97,16 @@ def main(argv=None, codec=None):
     print(f"Found {len(dataset)} images; tile={args.tile}; "
           f"device={codec.device}")
 
+    # the pipeline runs plain tiled runs (no overlap blending) with a table
+    # the device packer takes; streams and bpp equal the per-tile path's
+    pipeline = (not args.no_pipeline and args.overlap == 0
+                and codec._device_tables is not None)
     records = []
     with open(os.path.join(args.output_dir, "bpp.txt"), "w") as log:
-        for k in range(len(dataset)):
-            img = dataset[k]
-            t0 = time.time()
-            rec, bpp, _ = compress_tiled(codec, img, rc, rm, tile=args.tile,
-                                         overlap=args.overlap)
-            dt = time.time() - t0
-            p = psnr(np.clip(rec, 0, 1), img)
+        def emit(k, img, rec, bpp, dt):
+            p = psnr(np.clip(np.asarray(rec, np.float32)
+                             / (255.0 if rec.dtype == np.uint8 else 1.0),
+                             0, 1), img)
             records.append((k, bpp, p, dt))
             save_png(os.path.join(args.output_dir, f"{k:03d}_{bpp:0.5f}.png"),
                      rec)
@@ -105,6 +114,31 @@ def main(argv=None, codec=None):
                     f"bpp={bpp:.5f} psnr={p:.2f}dB {dt:.2f}s")
             print(line)
             log.write(line + "\n")
+
+        if pipeline:
+            chunk = 8    # bounds host memory; images overlap within a chunk
+            for base in range(0, len(dataset), chunk):
+                imgs = [dataset[k] for k in
+                        range(base, min(base + chunk, len(dataset)))]
+                # uint8 up (4x fewer bytes): the dataset's pixels are k/255,
+                # so rint(img * 255) gives the source bytes back and the
+                # device's / 255 the same floats, hence the same streams
+                imgs_u8 = [np.rint(im * 255.0).astype(np.uint8)
+                           for im in imgs]
+                t0 = time.time()
+                results = compress_tiled_device(codec, imgs_u8, rc, rm,
+                                                tile=args.tile)
+                dt = (time.time() - t0) / len(imgs)
+                for j, (rec, bpp, _) in enumerate(results):
+                    emit(base + j, imgs[j], rec, bpp, dt)
+        else:
+            for k in range(len(dataset)):
+                img = dataset[k]
+                t0 = time.time()
+                rec, bpp, _ = compress_tiled(
+                    codec, img, rc, rm, tile=args.tile, overlap=args.overlap,
+                    device_pack=args.device_pack)
+                emit(k, img, rec, bpp, time.time() - t0)
         avg = (f"average: bpp={np.mean([r[1] for r in records]):.5f} "
                f"psnr={np.mean([r[2] for r in records]):.2f}dB")
         print(avg)

@@ -1,11 +1,16 @@
 """End-to-end codec: the model on the device plus host entropy coding
-(port of control_gic_tpu/codec.py: the serial sender and receiver).
+(port of control_gic_tpu/codec.py).
 
   sender:   encode(image) -> index grid + grain masks (device)
             -> per-grain index streams and mask bitmaps (host)
-            -> Huffman and bitmap frames
-  receiver: read the frames -> rebuild the masks and the index grid (host)
-            -> upload them -> decode_indices -> RGB (device)
+            -> Huffman and bitmap frames (the C++ coder, or Python)
+            device_pack=True: the streams are compacted and Huffman-packed
+            on the device (coding/stream_pack.py) and the host fetches one
+            fused buffer per batch and frames its bytes
+  receiver: read the frames -> rebuild the index grid (host)
+            -> upload ONE compact buffer per batch: the grid as uint16 and
+            the mask bitmaps as sent (split_compact_buf)
+            -> masks unpacked, decode_indices -> RGB (device)
 
 Streams per compression mode:
   mode 0: indices coarse+medium+fine, masks coarse+medium
@@ -17,21 +22,38 @@ The fine mask is never sent: the receiver derives it as the complement.
 bpp = total stream bytes (each with its pad header) * 8 / pixels.
 
 Images at the public functions are numpy [H, W, 3] (or [N, H, W, 3]) in
-[0, 1], float or uint8, as in the JAX package; reconstructions come back as
-float32 numpy in the same layout.
+[0, 1], float or uint8 (divided by 255 on the device), as in the JAX
+package; reconstructions come back as float32 numpy in the same layout, or
+uint8 quantized as save_png does with out_uint8=True.
+
+Device work is asynchronous up to a fetch: images go up from pinned memory
+without waiting, results come down by a pinned copy enqueued behind the
+work, with an event after the work and one after the copy (`_Fetch`). All
+of it runs on the device's current stream, one queue as in JAX, from
+whichever thread. `encode_batch_async` / `encode_finish` and
+`decode_batch_async` split the two halves, and `roundtrip_pipelined` runs
+batch i's host entropy stage while the device encodes batch i+1.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue
+import threading
 import time
+from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .coding import BitmapCodec, HuffmanCodec
+from .coding.huffman_decode_device import bitmap_decode_bits, words_from_frame
+from .coding.huffman_device import pack_tables, supports_table
+from .coding.stream_pack import (fuse_packed, fused_layout, fused_to_bytes,
+                                 pack_streams_batch)
 from .models.cgic import CGIC
+from .ops.router import mode_from_ratios
 from .utils.device import resolve_device
 
 STREAM_FILES = {
@@ -55,12 +77,59 @@ MODE_STREAMS = {
 
 
 class CorruptStreamError(ValueError):
-    """A bitstream decoded to a symbol count its mask does not select."""
+    """A bitstream decoded to a symbol count its mask does not select, or to
+    a symbol outside the codebook."""
 
 
 def _acc(stats: Optional[dict], key: str, val: float) -> None:
     if stats is not None:
         stats[key] = stats.get(key, 0.0) + val
+
+
+class _Fetch:
+    """Device tensors on their way to the host: pinned copies enqueued on
+    the device's current stream behind the work that computes them, an
+    event after that work (`sync`) and one after the copies (`arrays`). On
+    the CPU, the tensors themselves."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        dev = tensors[0].device
+        self.done = self.copied = None
+        if dev.type != "cuda":
+            self.host = tensors
+            return
+        stream = torch.cuda.current_stream(dev)
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
+        self.host = tuple(
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True) for t in tensors)
+        self.copied = torch.cuda.Event()
+        self.copied.record(stream)
+
+    def sync(self) -> None:
+        """Wait for the work that computes the tensors."""
+        if self.done is not None:
+            self.done.synchronize()
+
+    def arrays(self) -> List[np.ndarray]:
+        """Wait for the copies; the tensors as numpy arrays."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        return [t.numpy() for t in self.host]
+
+
+@dataclasses.dataclass
+class _PendingEncode:
+    """An encode dispatched to the device and not yet fetched. Exactly one
+    of `packed` (the fused stream buffer) and `enc` (the index grid and the
+    three masks) is set."""
+    mode: int
+    latent_hw: Tuple[int, int]
+    image_hw: Tuple[int, int]
+    n: int
+    packed: Optional[_Fetch] = None
+    enc: Optional[_Fetch] = None
 
 
 @dataclasses.dataclass
@@ -105,41 +174,116 @@ def _up4(m: np.ndarray) -> np.ndarray:
 
 
 class CGICCodec:
-    """Binds a CGIC model on `device` to the host entropy coders. The model
-    is moved to `device`; CUDA is the default and is never replaced by the
-    CPU quietly."""
+    """Binds a CGIC model on `device` to the entropy coders. The model is
+    moved to `device`; CUDA is the default and is never replaced by the CPU
+    quietly."""
 
     def __init__(self, model: CGIC, counts: Sequence[int],
                  device: Union[str, torch.device] = "cuda"):
+        counts = np.asarray(counts)
+        # the compact receiver ships index grids as uint16
+        # (split_compact_buf); the reference codebook has 1024 entries
+        if len(counts) > 65536:
+            raise ValueError(f"codebook of {len(counts)} entries: the "
+                             "compact receiver's uint16 grid takes at most "
+                             "65536")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.huffman = HuffmanCodec.from_counts(np.asarray(counts))
+        self.huffman = HuffmanCodec.from_counts(counts)
         self.bitmap = BitmapCodec()
+        # the device packer takes codes of at most 32 bits (any table
+        # without a long zero-count tail)
+        self._device_tables = (pack_tables(self.huffman.codes)
+                               if supports_table(self.huffman.codes)
+                               else None)
+        self._device_tables_dev = None   # the same as int64 device tensors
+        # per-stage seconds and bytes of the last roundtrip_pipelined or
+        # compress_tiled_device run
+        self.last_pipeline_stats: Dict[str, float] = {}
+        # the receiver the last decode_batch used: always 'host' here (the
+        # device-unpack receiver is not ported yet)
+        self.last_decode_path: Optional[str] = None
 
-    # ---------------------------------------------------------------- encode
+    # ------------------------------------------------------- host <-> device
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """numpy -> the device, without waiting: staged in pinned memory and
+        copied on the current stream (the host allocator keeps the pinned
+        block until the copy is done)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _to_input(self, images: np.ndarray) -> torch.Tensor:
         """[N, H, W, 3] numpy in [0, 1] (uint8 divided by 255 on the device)
         -> [N, 3, H, W] float32 on the device."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        return self._input_from_device(self._upload(images))
+
+    @staticmethod
+    def _input_from_device(x: torch.Tensor) -> torch.Tensor:
+        """[N, H, W, 3] on the device -> [N, 3, H, W] float32; uint8 / 255
+        in f32, the same single rounding as the dataset's k / 255."""
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         return x.permute(0, 3, 1, 2).contiguous()
 
-    @torch.no_grad()
-    def encode_arrays(self, images: np.ndarray, coarse_ratio: float,
-                      medium_ratio: float, per_sample: bool = False):
-        """Device half of the sender: [N, H, W, 3] -> numpy (indices, m_c,
-        m_m, m_f) and the mode."""
+    @staticmethod
+    def _check_images(images: np.ndarray) -> None:
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected [N, H, W, 3] images, got "
                              f"{images.shape}")
         if images.shape[1] % 16 or images.shape[2] % 16:
             raise ValueError(f"image size {images.shape[1:3]} is not a "
                              "multiple of 16: pad or crop it first")
+
+    # ---------------------------------------------------------------- encode
+
+    @torch.no_grad()
+    def encode_arrays(self, images: np.ndarray, coarse_ratio: float,
+                      medium_ratio: float, per_sample: bool = False):
+        """Device half of the sender: [N, H, W, 3] -> numpy (indices, m_c,
+        m_m, m_f) and the mode."""
+        self._check_images(images)
         enc = self.model.encode(self._to_input(images), float(coarse_ratio),
                                 float(medium_ratio), per_sample=per_sample)
-        arrays = [t.cpu().numpy() for t in (enc.indices, *enc.router.masks)]
-        return arrays, enc.router.mode
+        return (_Fetch(enc.indices, *enc.router.masks).arrays(),
+                enc.router.mode)
+
+    def _tables_on_device(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self._device_tables_dev is None:
+            self._device_tables_dev = tuple(
+                torch.from_numpy(t.astype(np.int64)).to(self.device)
+                for t in self._device_tables)
+        return self._device_tables_dev
+
+    def _encode_pack_fn(self, x: torch.Tensor, rc: float, rm: float,
+                        per_sample: bool) -> torch.Tensor:
+        """Neural encode + on-device stream packing of a [N, 3, H, W] device
+        batch -> the fused buffer [N, words] uint32 (coding/stream_pack.py::
+        fuse_packed): the host fetches it once instead of the grids."""
+        lens, words = self._tables_on_device()
+        enc = self.model.encode(x, rc, rm, per_sample=per_sample)
+        packed = pack_streams_batch(enc.indices, enc.router.masks,
+                                    enc.router.mode, lens, words,
+                                    self._max_code_len())
+        return fuse_packed(packed, enc.router.mode)
+
+    def _max_code_len(self) -> int:
+        lens = self._device_tables[0]
+        return int(lens.max()) if lens.size else 1
+
+    def _pack_layout(self, mode: int, hl: int, wl: int):
+        return fused_layout(mode, hl, wl, self._max_code_len())
+
+    def _frame_packed(self, buf: np.ndarray, mode: int,
+                      image_hw: Tuple[int, int], n: int
+                      ) -> List[EncodedImage]:
+        h, w = image_hw
+        layout = self._pack_layout(mode, h // 4, w // 4)
+        return [EncodedImage(mode=mode, latent_hw=(h // 4, w // 4),
+                             image_hw=(h, w),
+                             streams=fused_to_bytes(buf, layout, i))
+                for i in range(n)]
 
     def streams_from_arrays(self, ind: np.ndarray, m_c: np.ndarray,
                             m_m: np.ndarray, m_f: np.ndarray, mode: int,
@@ -165,43 +309,45 @@ class CGICCodec:
                             image_hw=tuple(image_hw), streams=streams)
 
     def encode(self, image: np.ndarray, coarse_ratio: float,
-               medium_ratio: float, *,
+               medium_ratio: float, *, device_pack: bool = False,
                stats: Optional[dict] = None) -> EncodedImage:
-        """image: [H, W, 3] in [0, 1] -> its bundle. `stats` (optional dict)
-        accumulates the seconds of the device encode ('encode_s') and of the
-        entropy coding ('entropy_s')."""
+        """image: [H, W, 3] in [0, 1] -> its bundle. device_pack=True packs
+        the streams on the device (byte-identical; the host path when the
+        table has codes above 32 bits). `stats` (optional dict) accumulates
+        the seconds of the device encode with its fetch ('encode_s') and of
+        the host entropy coding or framing ('entropy_s')."""
         if image.ndim != 3:
             raise ValueError(f"expected one [H, W, 3] image, got "
                              f"{image.shape}")
         t0 = time.perf_counter()
-        (ind, m_c, m_m, m_f), mode = self.encode_arrays(
-            image[None], coarse_ratio, medium_ratio)
-        t1 = time.perf_counter()
-        out = self.streams_from_arrays(ind[0], m_c[0], m_m[0], m_f[0], mode,
-                                       image.shape[:2])
-        _acc(stats, "encode_s", t1 - t0)
-        _acc(stats, "entropy_s", time.perf_counter() - t1)
+        pend = self.encode_batch_async(image[None], coarse_ratio,
+                                       medium_ratio, device_pack=device_pack,
+                                       per_sample=False)
+        st: Dict[str, float] = {}
+        out = self.encode_finish(pend, stats=st)[0]
+        _acc(stats, "encode_s", time.perf_counter() - t0 - st["b_frame_s"])
+        _acc(stats, "entropy_s", st["b_frame_s"])
         return out
 
     def encode_batch(self, images: np.ndarray, coarse_ratio: float,
-                     medium_ratio: float) -> List[EncodedImage]:
+                     medium_ratio: float, *,
+                     device_pack: bool = False) -> List[EncodedImage]:
         """Batched encode of same-shape images, each routed with its own
         thresholds, so every bundle equals a solo encode of its image."""
-        (ind, m_c, m_m, m_f), mode = self.encode_arrays(
-            images, coarse_ratio, medium_ratio, per_sample=True)
-        return [self.streams_from_arrays(ind[i], m_c[i], m_m[i], m_f[i],
-                                         mode, images.shape[1:3])
-                for i in range(len(images))]
+        return self.encode_finish(self.encode_batch_async(
+            images, coarse_ratio, medium_ratio, device_pack=device_pack))
 
     # ---------------------------------------------------------------- decode
 
     def _rebuild(self, encoded: EncodedImage
                  ) -> Tuple[np.ndarray, List[np.ndarray]]:
         """The full index grid + mask triple from the bitstreams (all 7
-        modes). Raises CorruptStreamError on a count mismatch."""
+        modes). Raises CorruptStreamError on a count mismatch or a symbol
+        outside the codebook."""
         hl, wl = encoded.latent_hw
         mode = encoded.mode
         get = lambda n: encoded.streams[n]
+        n_sym = self.huffman.n_sym
 
         def mask(name: str, h: int, w: int) -> np.ndarray:
             bits = self.bitmap.decode(get(name))
@@ -221,6 +367,10 @@ class CGICCodec:
                     f"stream '{name}' decoded {n} symbols but its mask "
                     f"selects {int(sel.sum())} positions")
             if data is not None:
+                if n and not 0 <= int(data.min()) <= int(data.max()) < n_sym:
+                    raise CorruptStreamError(
+                        f"stream '{name}' decoded a symbol outside the "
+                        f"codebook of {n_sym}")
                 grid[sel] = data
             return grid
 
@@ -268,28 +418,122 @@ class CGICCodec:
             raise ValueError(f"bad mode {mode}")
         return ind, [m_c, m_m, m_f]
 
-    @torch.no_grad()
+    @staticmethod
+    def _mask_word_caps(hl: int, wl: int) -> Tuple[int, int]:
+        """uint32 word capacities of the coarse and medium mask frame bodies
+        (n bits plus the 1..8-bit pad can spill one word past
+        ceil(n / 32))."""
+        nc = (hl // 4) * (wl // 4)
+        nm = (hl // 2) * (wl // 2)
+        return (nc + 8 + 31) // 32, (nm + 8 + 31) // 32
+
+    @staticmethod
+    def split_compact_buf(buf: torch.Tensor, mode: int, hl: int, wl: int):
+        """Unpack the compact receiver buffer, one 16-bit row per image
+        ([B, ind as uint16 | mask_coarse frame words | mask_medium frame
+        words], int16 or uint16 bits), into decode_indices' arguments,
+        deriving the absent masks as the host rebuild does: the fine mask
+        is the complement; all-one or all-zero masks in the one-grain
+        modes. Each frame word is two 16-bit halves, low half first (the
+        host wrote `w.view(np.uint16)` on a little-endian machine).
+
+        Returns (ind [B, hl, wl] int64, (m_c, m_m, m_f) int32)."""
+        b = buf.shape[0]
+        nf = hl * wl
+        hc, wc = hl // 4, wl // 4
+        hm, wm = hl // 2, wl // 2
+        wcw, wmw = CGICCodec._mask_word_caps(hl, wl)
+        present = MODE_STREAMS[mode]
+        dev = buf.device
+
+        ind = (buf[:, :nf].to(torch.int64) & 0xFFFF).reshape(b, hl, wl)
+        pos = nf
+
+        def mask_at(p, nw, h, w):
+            seg = buf[:, p:p + 2 * nw].reshape(b, nw, 2).contiguous()
+            words = seg.view(torch.int32).reshape(b, nw)
+            return bitmap_decode_bits(words, h * w).reshape(b, h, w)
+
+        up2 = lambda g: g.repeat_interleave(2, -2).repeat_interleave(2, -1)
+        up4 = lambda g: g.repeat_interleave(4, -2).repeat_interleave(4, -1)
+        zeros = lambda h, w: torch.zeros((b, h, w), dtype=torch.int32,
+                                         device=dev)
+        ones = lambda h, w: torch.ones((b, h, w), dtype=torch.int32,
+                                       device=dev)
+
+        m_c = m_m = None
+        if "mask_coarse" in present:
+            m_c = mask_at(pos, wcw, hc, wc)
+            pos += 2 * wcw
+        if "mask_medium" in present:
+            m_m = mask_at(pos, wmw, hm, wm)
+            pos += 2 * wmw
+        if mode == 0:
+            m_f = 1 - up2(m_m) - up4(m_c)
+        elif mode == 1:
+            m_f = 1 - up2(m_m)
+            m_c = zeros(hc, wc)
+        elif mode == 2:
+            m_f = 1 - up4(m_c)
+            m_m = zeros(hm, wm)
+        elif mode == 3:
+            m_m = 1 - up2(m_c)
+            m_f = zeros(hl, wl)
+        elif mode == 4:
+            m_c, m_m, m_f = ones(hc, wc), zeros(hm, wm), zeros(hl, wl)
+        elif mode == 5:
+            m_m, m_c, m_f = ones(hm, wm), zeros(hc, wc), zeros(hl, wl)
+        else:
+            m_f, m_c, m_m = ones(hl, wl), zeros(hc, wc), zeros(hm, wm)
+        return ind, (m_c, m_m, m_f)
+
+    def _compact_decode_input(self, encoded: List[EncodedImage],
+                              inds) -> np.ndarray:
+        """Host half of the compact receiver upload: the index grids as
+        uint16 and the mask frame bodies as sent, one row per image (see
+        split_compact_buf)."""
+        mode = encoded[0].mode
+        hl, wl = encoded[0].latent_hw
+        wcw, wmw = self._mask_word_caps(hl, wl)
+        present = MODE_STREAMS[mode]
+        rows = []
+        for e, ind in zip(encoded, inds):
+            parts = [np.asarray(ind, np.uint16).reshape(-1)]
+            if "mask_coarse" in present:
+                w, _ = words_from_frame(e.streams["mask_coarse"], wcw)
+                parts.append(w.view(np.uint16))
+            if "mask_medium" in present:
+                w, _ = words_from_frame(e.streams["mask_medium"], wmw)
+                parts.append(w.view(np.uint16))
+            rows.append(np.concatenate(parts))
+        return np.stack(rows)
+
+    def _decode_fused_fn(self, buf: torch.Tensor, mode: int, hl: int,
+                         wl: int, out_uint8: bool) -> torch.Tensor:
+        """The receiver's device half from ONE compact buffer per batch (one
+        upload at near the wire format's size): [B, H, W, 3] float32, or
+        uint8 with out_uint8, quantized as cli.common.save_png does (f32,
+        clip, * 255, truncate), which cuts the fetch 4x."""
+        ind, masks = self.split_compact_buf(buf, mode, hl, wl)
+        rec = self.model.decode_indices(ind, masks).float()
+        if out_uint8:
+            rec = (rec.clamp(0.0, 1.0) * 255).to(torch.uint8)
+        return rec.permute(0, 2, 3, 1).contiguous()
+
     def decode_batch(self, encoded: List[EncodedImage], *,
+                     out_uint8: bool = False,
                      stats: Optional[dict] = None) -> np.ndarray:
-        """Same-mode, same-shape bundles -> [N, H, W, 3] float32. `stats`
-        accumulates the host rebuild ('rebuild_s') and the upload, device
-        decode and download ('decode_s')."""
-        mode, hl_wl = encoded[0].mode, encoded[0].latent_hw
-        if not all(e.mode == mode and e.latent_hw == hl_wl
-                   for e in encoded):
-            raise ValueError("decode_batch needs same-mode, same-shape "
-                             "bundles; split mixed batches first")
+        """Same-mode, same-shape bundles -> [N, H, W, 3] float32 (uint8 with
+        out_uint8). `stats` accumulates the host rebuild ('rebuild_s') and
+        the upload, device decode and download ('decode_s')."""
         t0 = time.perf_counter()
-        rebuilt = [self._rebuild(e) for e in encoded]
-        t1 = time.perf_counter()
-        up = lambda arrs: torch.from_numpy(np.stack(arrs)).to(self.device)
-        ind = up([r[0] for r in rebuilt])
-        masks = tuple(up([r[1][j] for r in rebuilt]).to(torch.int32)
-                      for j in range(3))
-        rec = self.model.decode_indices(ind, masks)
-        out = rec.float().permute(0, 2, 3, 1).cpu().numpy()
-        _acc(stats, "rebuild_s", t1 - t0)
-        _acc(stats, "decode_s", time.perf_counter() - t1)
+        st: Dict[str, float] = {}
+        out = _Fetch(self.decode_batch_async(
+            encoded, out_uint8=out_uint8, stats=st)).arrays()[0]
+        self.last_decode_path = "host"
+        _acc(stats, "rebuild_s", st["b_rebuild_s"])
+        _acc(stats, "decode_s",
+             time.perf_counter() - t0 - st["b_rebuild_s"])
         return out
 
     def decode(self, encoded: EncodedImage, *,
@@ -297,15 +541,246 @@ class CGICCodec:
         """-> [H, W, 3] float32 reconstruction."""
         return self.decode_batch([encoded], stats=stats)[0]
 
+    # ----------------------------------------------------- pipelined batches
+
+    @torch.no_grad()
+    def encode_batch_async(self, images: np.ndarray, coarse_ratio: float,
+                           medium_ratio: float, *, device_pack: bool = False,
+                           per_sample: bool = True) -> _PendingEncode:
+        """Dispatch the device half of encode_batch and return at once: the
+        handle owns the fetches in flight. encode_finish waits for them and
+        frames the streams; between the two the host is free to run another
+        batch's entropy stage (roundtrip_pipelined)."""
+        self._check_images(images)
+        n, h, w, _ = images.shape
+        rc, rm = float(coarse_ratio), float(medium_ratio)
+        x = self._to_input(images)
+        hw = (h // 4, w // 4)
+        if device_pack and self._device_tables is not None:
+            buf = self._encode_pack_fn(x, rc, rm, per_sample)
+            return _PendingEncode(mode_from_ratios(rc, rm), hw, (h, w), n,
+                                  packed=_Fetch(buf))
+        enc = self.model.encode(x, rc, rm, per_sample=per_sample)
+        return _PendingEncode(enc.router.mode, hw, (h, w), n,
+                              enc=_Fetch(enc.indices, *enc.router.masks))
+
+    def encode_finish(self, pending: _PendingEncode,
+                      stats: Optional[dict] = None) -> List[EncodedImage]:
+        """Wait for a pending encode and frame its streams (the host entropy
+        stage). `stats` accumulates 'b_sync_s' (waiting for the device
+        encode), 'b_fetch_s' (waiting for the copy to the host),
+        'b_frame_s' (host framing or entropy coding) and 'b_fetch_bytes'."""
+        fetch = pending.packed if pending.packed is not None else pending.enc
+        t0 = time.perf_counter()
+        fetch.sync()
+        t1 = time.perf_counter()
+        arrays = fetch.arrays()
+        t2 = time.perf_counter()
+        if pending.packed is not None:
+            out = self._frame_packed(arrays[0], pending.mode,
+                                     pending.image_hw, pending.n)
+        else:
+            ind, m_c, m_m, m_f = arrays
+            out = [self.streams_from_arrays(ind[i], m_c[i], m_m[i], m_f[i],
+                                            pending.mode, pending.image_hw)
+                   for i in range(pending.n)]
+        _acc(stats, "b_sync_s", t1 - t0)
+        _acc(stats, "b_fetch_s", t2 - t1)
+        _acc(stats, "b_frame_s", time.perf_counter() - t2)
+        _acc(stats, "b_fetch_bytes", sum(a.nbytes for a in arrays))
+        return out
+
+    @torch.no_grad()
+    def decode_batch_async(self, encoded: List[EncodedImage], *,
+                           out_uint8: bool = False,
+                           stats: Optional[dict] = None) -> torch.Tensor:
+        """Host rebuild + the compact upload + the device decode, dispatched
+        without waiting. Returns the device tensor [N, H, W, 3] (float32, or
+        uint8 with out_uint8). `stats` accumulates 'b_rebuild_s' (host
+        entropy decode and the compact buffer), 'b_h2d_dispatch_s' and
+        'b_h2d_bytes'."""
+        t0 = time.perf_counter()
+        mode, hl_wl = encoded[0].mode, encoded[0].latent_hw
+        # the compact buffer derives every image's masks from one mode
+        if not all(e.mode == mode and e.latent_hw == hl_wl
+                   for e in encoded):
+            raise ValueError("decode_batch needs same-mode, same-shape "
+                             "bundles; split mixed batches first")
+        inds = [self._rebuild(e)[0] for e in encoded]
+        buf = self._compact_decode_input(encoded, inds)
+        t1 = time.perf_counter()
+        out = self._decode_fused_fn(self._upload(buf.view(np.int16)), mode,
+                                    *hl_wl, out_uint8)
+        _acc(stats, "b_rebuild_s", t1 - t0)
+        _acc(stats, "b_h2d_dispatch_s", time.perf_counter() - t1)
+        _acc(stats, "b_h2d_bytes", buf.nbytes)
+        return out
+
+    def roundtrip_pipelined(self, batches, coarse_ratio: float,
+                            medium_ratio: float, *,
+                            device_pack: bool = False,
+                            out_uint8: bool = False,
+                            threads: Optional[bool] = None
+                            ) -> Tuple[List[np.ndarray],
+                                       List[List[EncodedImage]]]:
+        """The full codec over a sequence of same-shape image batches,
+        software-pipelined: while the host runs batch i's entropy stage
+        (framing, then the receiver's rebuild), the device already encodes
+        batch i+1, and batch i-1's decode drains. The results equal
+        encode_batch / decode_batch per batch; only the schedule differs.
+
+        threads=None: threaded when the codec's device is CUDA. The threaded
+        schedule runs the upload and encode dispatch (this thread), the
+        entropy stage with the decode dispatch (worker B) and the fetch of
+        the reconstructions (worker C) at once, with bounded queues between
+        them. The C++ coder releases the interpreter lock, so the entropy
+        stage overlaps the dispatch.
+
+        After the call, self.last_pipeline_stats holds each stage's summed
+        seconds and bytes (a_upload_s, b_sync_s, b_fetch_s, b_frame_s,
+        b_rebuild_s, b_h2d_dispatch_s, b_h2d_bytes, c_sync_s, c_fetch_s,
+        wall_s, threaded); the stage sums against wall_s say how much the
+        stages overlapped.
+
+        Returns (reconstructions per batch, bundles per batch)."""
+        batches = list(batches)
+        if threads is None:
+            threads = self.device.type == "cuda"
+        if threads and len(batches) > 1:
+            return self._roundtrip_threaded(batches, coarse_ratio,
+                                            medium_ratio,
+                                            device_pack=device_pack,
+                                            out_uint8=out_uint8)
+        stats = defaultdict(float)
+        t_wall = time.perf_counter()
+        recs: List[np.ndarray] = []
+        encs_all: List[List[EncodedImage]] = []
+
+        def fetch_rec(fetch):
+            t0 = time.perf_counter()
+            fetch.sync()
+            t1 = time.perf_counter()
+            recs.append(fetch.arrays()[0])
+            stats["c_sync_s"] += t1 - t0
+            stats["c_fetch_s"] += time.perf_counter() - t1
+
+        def dispatch(i):
+            t0 = time.perf_counter()
+            pend = self.encode_batch_async(batches[i], coarse_ratio,
+                                           medium_ratio,
+                                           device_pack=device_pack)
+            stats["a_upload_s"] += time.perf_counter() - t0
+            stats["a_upload_bytes"] += batches[i].nbytes
+            return pend
+
+        pend_d = None
+        pend_e = dispatch(0) if batches else None
+        for i in range(len(batches)):
+            nxt = dispatch(i + 1) if i + 1 < len(batches) else None
+            encs = self.encode_finish(pend_e, stats=stats)
+            encs_all.append(encs)
+            if pend_d is not None:
+                fetch_rec(pend_d)
+            pend_d = _Fetch(self.decode_batch_async(
+                encs, out_uint8=out_uint8, stats=stats))
+            pend_e = nxt
+        if pend_d is not None:
+            fetch_rec(pend_d)
+        stats["wall_s"] = time.perf_counter() - t_wall
+        stats["threaded"] = 0.0
+        self.last_pipeline_stats = dict(stats)
+        return recs, encs_all
+
+    def _roundtrip_threaded(self, batches, coarse_ratio: float,
+                            medium_ratio: float, *, device_pack: bool,
+                            out_uint8: bool):
+        """The three-thread schedule of roundtrip_pipelined. The queues hold
+        at most two batches a stage, which bounds device memory. A worker's
+        first error stops the dispatch; the workers drain their queues so
+        that no producer blocks on a dead consumer, and the error is raised
+        here."""
+        n = len(batches)
+        recs: List[Optional[np.ndarray]] = [None] * n
+        encs_all: List[Optional[List[EncodedImage]]] = [None] * n
+        qa: "queue.Queue" = queue.Queue(maxsize=2)
+        qb: "queue.Queue" = queue.Queue(maxsize=2)
+        errors: List[BaseException] = []
+        stats = defaultdict(float)   # each stage writes its own keys
+        t_wall = time.perf_counter()
+
+        def worker_b():
+            while True:
+                item = qa.get()
+                if item is None:
+                    qb.put(None)
+                    return
+                if errors:
+                    continue
+                i, pend = item
+                try:
+                    with torch.no_grad():
+                        encs = self.encode_finish(pend, stats=stats)
+                        rec = _Fetch(self.decode_batch_async(
+                            encs, out_uint8=out_uint8, stats=stats))
+                    qb.put((i, encs, rec))
+                except BaseException as e:   # raised on the caller's thread
+                    errors.append(e)
+
+        def worker_c():
+            while True:
+                item = qb.get()
+                if item is None:
+                    return
+                if errors:
+                    continue
+                i, encs, rec = item
+                try:
+                    encs_all[i] = encs
+                    t0 = time.perf_counter()
+                    rec.sync()
+                    t1 = time.perf_counter()
+                    recs[i] = rec.arrays()[0]
+                    stats["c_sync_s"] += t1 - t0
+                    stats["c_fetch_s"] += time.perf_counter() - t1
+                except BaseException as e:
+                    errors.append(e)
+
+        tb = threading.Thread(target=worker_b, daemon=True)
+        tc = threading.Thread(target=worker_c, daemon=True)
+        tb.start()
+        tc.start()
+        try:
+            for i in range(n):
+                if errors:
+                    break
+                t0 = time.perf_counter()
+                pend = self.encode_batch_async(batches[i], coarse_ratio,
+                                               medium_ratio,
+                                               device_pack=device_pack)
+                stats["a_upload_s"] += time.perf_counter() - t0
+                stats["a_upload_bytes"] += batches[i].nbytes
+                qa.put((i, pend))
+        finally:
+            qa.put(None)
+            tb.join()
+            tc.join()
+        stats["wall_s"] = time.perf_counter() - t_wall
+        stats["threaded"] = 1.0
+        self.last_pipeline_stats = dict(stats)
+        if errors:
+            raise errors[0]
+        return recs, encs_all
+
     # ------------------------------------------------------------ round-trip
 
     def compress(self, image: np.ndarray, coarse_ratio: float,
                  medium_ratio: float, out_dir: Optional[str] = None, *,
-                 stats: Optional[dict] = None
+                 device_pack: bool = False, stats: Optional[dict] = None
                  ) -> Tuple[np.ndarray, float, EncodedImage]:
         """Sender -> receiver round trip, through stream files in `out_dir`
         when given. Returns (reconstruction [H, W, 3], bpp, bundle)."""
-        encoded = self.encode(image, coarse_ratio, medium_ratio, stats=stats)
+        encoded = self.encode(image, coarse_ratio, medium_ratio,
+                              device_pack=device_pack, stats=stats)
         if out_dir is not None:
             t0 = time.perf_counter()
             encoded.write(out_dir)

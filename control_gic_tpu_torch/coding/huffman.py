@@ -1,11 +1,15 @@
 """Huffman index-stream codec with the reference's byte-exact framing
-(port of control_gic_tpu/coding/huffman.py, pure-Python path).
+(port of control_gic_tpu/coding/huffman.py).
 
 The tree is built as the reference builds it: nodes pushed into a binary
 heap in table order with `<` comparing frequency only (Python's heapq, so
 ties resolve by heap mechanics), repeated two-smallest merges, then a
 right-first DFS assigning '0' left and '1' right. Every symbol in the table
 gets a code, zero-frequency ones included, so codes can run past 256 bits.
+
+The per-image work (packing code bits, walking the decode trie) runs in the
+C++ coder (native/entropy_codec.cpp, `native_lib`) when it builds, with the
+pure-Python path as the fallback and the oracle of the tests.
 
 Frame: one pad-count byte (1..8; a byte-aligned payload still takes 8 pad
 bits), then the MSB-first code bits zero-padded. An empty symbol stream
@@ -17,6 +21,8 @@ import heapq
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+
+from .native_lib import get_native
 
 
 class _Node:
@@ -83,22 +89,14 @@ def unframe_bits(data: bytes) -> Optional[np.ndarray]:
 class HuffmanCodec:
     """Encode/decode int symbol streams with a fixed code table."""
 
+    MAX_CODE_BYTES = 32  # the C++ encoder's code stride: codes up to 256 bits
+
     def __init__(self, frequencies: Mapping[int, int]):
         self.codes = build_huffman_codes(frequencies)
-        # decode trie: trie[node] = [child0, child1]; a child >= 0 is a node,
-        # ~symbol (< 0) a leaf, None unreachable
-        self._trie: List[list] = [[None, None]]
-        for sym, code in self.codes.items():
-            cur = 0
-            for i, bit in enumerate(code):
-                b = bit == "1"
-                if i == len(code) - 1:
-                    self._trie[cur][b] = ~sym
-                else:
-                    if self._trie[cur][b] is None:
-                        self._trie.append([None, None])
-                        self._trie[cur][b] = len(self._trie) - 1
-                    cur = self._trie[cur][b]
+        self.n_sym = (max(self.codes) + 1) if self.codes else 0
+        self._native = get_native()
+        self._lut = None  # the C++ decoder's LUT, built at the first decode
+        self._prepare_tables()
 
     @classmethod
     def from_counts(cls, counts: Sequence[int]) -> "HuffmanCodec":
@@ -109,11 +107,53 @@ class HuffmanCodec:
         items = sorted((str(i), int(c)) for i, c in enumerate(counts))
         return cls({int(k): v for k, v in items})
 
+    def _prepare_tables(self):
+        """lens [n] uint16, code_bytes [n, code_stride] (MSB-first) and the
+        flat decode trie: trie[2*node + bit] is a child node >= 0, ~symbol
+        (< 0) at a leaf, or INT32_MIN where no code goes."""
+        max_len = max((len(c) for c in self.codes.values()), default=0)
+        # a table with a long zero tail (every codebook entry goes to the
+        # heap) chains codes past the C++ encoder's 32-byte stride: size the
+        # table to the longest code and encode through Python then
+        self.code_stride = max(self.MAX_CODE_BYTES, (max_len + 7) // 8)
+        self.lens = np.zeros(self.n_sym, np.uint16)
+        self.code_bytes = np.zeros((self.n_sym, self.code_stride), np.uint8)
+        for sym, code in self.codes.items():
+            self.lens[sym] = len(code)
+            for i, bit in enumerate(code):
+                if bit == "1":
+                    self.code_bytes[sym, i >> 3] |= 0x80 >> (i & 7)
+        empty = np.iinfo(np.int32).min
+        nodes = [[empty, empty]]
+        for sym, code in self.codes.items():
+            cur = 0
+            for i, bit in enumerate(code):
+                b = int(bit)
+                if i == len(code) - 1:
+                    nodes[cur][b] = ~sym
+                else:
+                    if nodes[cur][b] == empty:
+                        nodes.append([empty, empty])
+                        nodes[cur][b] = len(nodes) - 1
+                    cur = nodes[cur][b]
+        self.trie = np.asarray(nodes, np.int32).reshape(-1)
+
     def encode(self, symbols) -> bytes:
-        symbols = np.asarray(symbols).reshape(-1)
+        symbols = np.asarray(symbols, np.int32).reshape(-1)
         if symbols.size == 0:
             return b""
-        return frame_bits("".join(self.codes[int(s)] for s in symbols))
+        if self._native is not None and \
+                self.code_stride == self.MAX_CODE_BYTES:
+            out = self._native.huff_encode(symbols, self.lens,
+                                           self.code_bytes)
+            if out is not None:
+                return out
+        return self.encode_python(symbols)
+
+    def encode_python(self, symbols) -> bytes:
+        """The pure-Python encoder (the fallback, and the tests' oracle)."""
+        return frame_bits("".join(self.codes[int(s)]
+                                  for s in np.asarray(symbols).reshape(-1)))
 
     def decode(self, data: bytes) -> Optional[List[int]]:
         """None for an empty stream (the reference's contract)."""
@@ -121,19 +161,34 @@ class HuffmanCodec:
         return None if out is None else out.tolist()
 
     def decode_array(self, data: bytes) -> Optional[np.ndarray]:
+        """decode() as an int32 array, without building a list (the
+        receiver scatters the symbols straight into its grids)."""
+        if len(data) == 0:
+            return None
+        if self._native is not None:
+            if self._lut is None:
+                self._lut = self._native.huff_build_lut(self.trie)
+            out = self._native.huff_decode(data, self.trie, self._lut)
+            if out is not None:
+                return out
+        return self.decode_python(data)
+
+    def decode_python(self, data: bytes) -> Optional[np.ndarray]:
+        """The pure-Python decoder: a bit-by-bit trie walk."""
         bits = unframe_bits(data)
         if bits is None:
             return None
         out: List[int] = []
-        trie = self._trie
+        trie = self.trie.tolist()
+        empty = np.iinfo(np.int32).min
         node = 0
         for b in bits.tolist():
-            nxt = trie[node][b]
-            if nxt is None:
+            nxt = trie[2 * node + b]
+            if nxt == empty:
                 raise ValueError("bitstream holds a code outside the table")
             if nxt < 0:
                 out.append(~nxt)
                 node = 0
             else:
                 node = nxt
-        return np.asarray(out, np.int64)
+        return np.asarray(out, np.int32)

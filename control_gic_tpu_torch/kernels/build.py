@@ -52,6 +52,7 @@ SIGNATURES = {
 }
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
 # name -> (seconds, ptxas report) of the builds this process ran
@@ -117,6 +118,15 @@ def function(name: str, fn: str) -> ctypes._CFuncPtr:
     if f is None:
         f = _FUNCTIONS[name, fn] = getattr(load(name), fn)
     return f
+
+
+def count_launch(counts: dict, key: str) -> None:
+    """Add one launch to counts[key]. Kernels launch from several threads in
+    the pipelined codec, and `+=` on a dict item is a read, an add and a
+    write, so the count is taken under a lock (uncontended: well under a
+    microsecond)."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

@@ -301,7 +301,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctypes.c_int(c), ctypes.c_int(code), ctypes.c_int(splits),
             ctypes.c_float(float(c) ** -0.5), ctypes.c_void_p(stream))
     build.check(lib, rc, "flash_attn_fwd")
-    KERNEL_LAUNCHES["flash_fwd_lse" if return_lse else "flash_fwd"] += 1
+    build.count_launch(KERNEL_LAUNCHES,
+                       "flash_fwd_lse" if return_lse else "flash_fwd")
     return (out, lse) if return_lse else out
 
 
@@ -336,7 +337,7 @@ def flash_attention_backward_dkdv(q, k, v, o, lse, do):
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
             _ptr(delta), _ptr(dk), _ptr(dv), *_bwd_args(q, k))
     build.check(lib, rc, "flash_attn_bwd (dk, dv)")
-    KERNEL_LAUNCHES["flash_bwd_dkdv"] += 1
+    build.count_launch(KERNEL_LAUNCHES, "flash_bwd_dkdv")
     return dk, dv, delta
 
 
@@ -353,7 +354,7 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta):
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(dq), *_bwd_args(q, k))
     build.check(lib, rc, "flash_attn_bwd (dq)")
-    KERNEL_LAUNCHES["flash_bwd_dq"] += 1
+    build.count_launch(KERNEL_LAUNCHES, "flash_bwd_dq")
     return dq
 
 

@@ -120,7 +120,7 @@ def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
                  code)
     if rc:
         build.check(build.load("gn_moments"), rc, "gn_moments")
-    KERNEL_LAUNCHES["gn_moments"] += 1
+    build.count_launch(KERNEL_LAUNCHES, "gn_moments")
     return mom
 
 
@@ -404,7 +404,7 @@ def spatial_norm_apply_kernel(f: torch.Tensor, zq_r: torch.Tensor,
     if rc:
         build.check(build.load("spatial_norm_apply"), rc,
                     "spatial_norm_apply")
-    KERNEL_LAUNCHES["spatial_norm_apply"] += 1
+    build.count_launch(KERNEL_LAUNCHES, "spatial_norm_apply")
     return out
 
 

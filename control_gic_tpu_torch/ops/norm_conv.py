@@ -39,12 +39,14 @@ import contextvars
 import ctypes
 import operator
 import os
+import threading
 import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels import build
 from . import use_kernel
 from .fused_norm import (_col, _row_block, gn_moments, gn_stats_from_moments,
                          group_norm_kernel_act, group_norm_reference,
@@ -203,8 +205,20 @@ def unpack_weights(wpk: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
 # the tensors it is built from:
 # key -> (their _version counters, weak references, value). An in-place
 # update (an optimizer step, load_state_dict) bumps _version and rebuilds;
-# an entry goes when one of its tensors is freed.
+# an entry goes when one of its tensors is freed. A hit reads one immutable
+# entry and takes no lock; a miss builds under _CACHE_LOCK, so that threads
+# launching at once build an entry once (the weakref callbacks only pop and
+# take no lock).
 _CACHE: dict = {}
+_CACHE_LOCK = threading.RLock()   # a make() may itself look up
+
+
+def _hit(key, tensors, versions):
+    hit = _CACHE.get(key)
+    if (hit is not None and hit[0] == versions
+            and all(map(operator.is_, [r() for r in hit[1]], tensors))):
+        return hit
+    return None
 
 
 def _cached(tensors: Sequence[torch.Tensor], extra: tuple, make):
@@ -212,15 +226,18 @@ def _cached(tensors: Sequence[torch.Tensor], extra: tuple, make):
     # comprehensions, which cost a third of generator expressions
     key = (*map(id, tensors), *extra)
     versions = [t._version for t in tensors]
-    hit = _CACHE.get(key)
-    if (hit is not None and hit[0] == versions
-            and all(map(operator.is_, [r() for r in hit[1]], tensors))):
+    hit = _hit(key, tensors, versions)
+    if hit is not None:
         return hit[2]
-    value = make()
-    refs = [weakref.ref(t, lambda _r, key=key: _CACHE.pop(key, None))
-            for t in tensors]
-    _CACHE[key] = (versions, refs, value)
-    return value
+    with _CACHE_LOCK:
+        hit = _hit(key, tensors, versions)
+        if hit is not None:
+            return hit[2]
+        value = make()
+        refs = [weakref.ref(t, lambda _r, key=key: _CACHE.pop(key, None))
+                for t in tensors]
+        _CACHE[key] = (versions, refs, value)
+        return value
 
 
 def chain_blocked_reference(x, cw, cb, gs, gb, stats: Stats, res=None, *,
@@ -361,7 +378,8 @@ def chain_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
     or (out, mom)."""
     out = _launch(x, cw, cb, gs, gb, stats, res, emit_mom, act_swish, zq_r,
                   wy, by, wb, bb, "chain_kernel")
-    KERNEL_LAUNCHES["chain_sn" if zq_r is not None else "chain_gn"] += 1
+    build.count_launch(KERNEL_LAUNCHES,
+                       "chain_sn" if zq_r is not None else "chain_gn")
     return out
 
 
@@ -375,8 +393,8 @@ def norm_conv_kernel(x: torch.Tensor, cw: torch.Tensor, cb: torch.Tensor,
     norm_conv_gn. CUDA tensors only, as chain_kernel."""
     out = _launch(x, cw, cb, gs, gb, stats, None, False, act_swish, zq_r,
                   wy, by, wb, bb, "norm_conv_kernel")
-    KERNEL_LAUNCHES["norm_conv_sn" if zq_r is not None
-                    else "norm_conv_gn"] += 1
+    build.count_launch(KERNEL_LAUNCHES, "norm_conv_sn" if zq_r is not None
+                       else "norm_conv_gn")
     return out
 
 

@@ -1,6 +1,5 @@
 """High-resolution tiled codec: pad -> tile -> batched per-tile codec ->
-stitch (port of control_gic_tpu/parallel/tiling.py: `compress_tiled` and its
-grid and window helpers).
+stitch (port of control_gic_tpu/parallel/tiling.py).
 
   - center zero-pad to a /16-divisible size (`compute_padding`);
   - a non-overlapping grid of `tile`-px tiles plus remainder tiles
@@ -11,18 +10,32 @@ grid and window helpers).
     `CGICCodec.encode_batch` / `decode_batch` as one batch, whose per-sample
     routing keeps each tile's streams equal to a solo encode;
   - bpp = the bits of all tiles / the original (unpadded) pixel count.
-Not ported yet: JAX's `compress_tiled_device` (the threaded pipeline with
-device packing) and `compress_tiled_many`, and the mesh and device-pack
-options of `compress_tiled`.
+Three schedules give the same streams: `compress_tiled` (one image, tile
+group after tile group), `compress_tiled_many` (many images, software-
+pipelined across groups and images) and `compress_tiled_device` (the tiled
+CLI's default: one upload and one download per image, tiles sliced and
+stitched on the device, streams packed there, images overlapped across the
+host entropy stage by threads). The mesh (ROADMAP queue 1 item 13) and the
+device-unpack receiver (item 11b) are not ported yet and raise.
 """
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..codec import CGICCodec, EncodedImage
+from ..codec import CGICCodec, EncodedImage, _Fetch
+from ..coding.stream_pack import fused_to_bytes
+from ..ops.router import mode_from_ratios
+
+_NO_MESH = ("mesh= needs the tile mesh (ROADMAP queue 1 item 13), not "
+            "ported yet")
 
 
 def compute_padding(h: int, w: int, min_div: int = 16
@@ -76,13 +89,15 @@ def gaussian_tile_weights(th: int, tw: int) -> np.ndarray:
 
 
 def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
-                   medium_ratio: float, tile: int = 768, overlap: int = 0
+                   medium_ratio: float, tile: int = 768, overlap: int = 0,
+                   mesh=None, device_pack: bool = False
                    ) -> Tuple[np.ndarray, float, List[EncodedImage]]:
     """Compress an image of any size as independent tiles.
 
     image: [H, W, 3] in [0, 1]. overlap 0 is the reference's
     non-overlapping grid; a multiple of 16 above 0 overlaps the tiles and
     blends them with the Gaussian window (seams gone, more bits).
+    device_pack=True packs the tiles' streams on the device (byte-identical).
 
     Returns (reconstruction [H, W, 3] float32, bpp over the original pixels,
     the tiles' bundles in grid order).
@@ -90,6 +105,8 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     if overlap % 16 or not 0 <= overlap < tile:
         raise ValueError(f"overlap must be a multiple of 16 in [0, {tile}), "
                          f"got {overlap}")
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
     h0, w0, _ = image.shape
     (pl, pr, pt, pb), _ = compute_padding(h0, w0)
     padded = np.pad(image, ((pt, pb), (pl, pr), (0, 0)))
@@ -110,7 +127,8 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     for (th, tw), idxs in groups.items():
         batch = np.stack([padded[tiles[i][0]:tiles[i][0] + th,
                                  tiles[i][1]:tiles[i][1] + tw] for i in idxs])
-        encs = codec.encode_batch(batch, coarse_ratio, medium_ratio)
+        encs = codec.encode_batch(batch, coarse_ratio, medium_ratio,
+                                  device_pack=device_pack)
         recs = codec.decode_batch(encs)
         wt = (gaussian_tile_weights(th, tw)[..., None] if overlap
               else np.ones((th, tw, 1), np.float32))
@@ -124,3 +142,324 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     recon = recon / np.maximum(weight, 1e-12)
     recon = recon[pt:h - pb if pb else h, pl:w - pr if pr else w]
     return recon, total_bits / (h0 * w0), bundles
+
+
+def _tile_fns(codec: CGICCodec) -> dict:
+    """The codec's cache of tile programs, by their static arguments."""
+    cache = getattr(codec, "_tile_fns", None)
+    if cache is None:
+        cache = codec._tile_fns = {}
+    return cache
+
+
+def _encode_tiles_fn(codec: CGICCodec, rc: float, rm: float,
+                     offsets: tuple, th: int, tw: int):
+    """image [H, W, 3] on the device (uint8 or float) -> the fused packed
+    stream buffer of the tiles at `offsets`, sliced on the device, so that
+    the image crosses to the device once, not once per tile group."""
+    key = ("enc", rc, rm, offsets, th, tw)
+    cache = _tile_fns(codec)
+    if key not in cache:
+        if codec._device_tables is None:
+            raise ValueError(
+                "compress_tiled_device needs a Huffman table the device "
+                "packer takes (codes <= 32 bits); use compress_tiled() or "
+                "compress_tiled_many() for this codec")
+
+        @torch.no_grad()
+        def fn(image):
+            tiles = torch.stack([image[y:y + th, x:x + tw]
+                                 for y, x in offsets])
+            return codec._encode_pack_fn(codec._input_from_device(tiles),
+                                         rc, rm, per_sample=True)
+
+        cache[key] = fn
+    return cache[key]
+
+
+def _decode_stitch_fn(codec: CGICCodec, mode: int, offsets: tuple, th: int,
+                      tw: int, out_uint8: bool):
+    """(canvas [H, W, 3] on the device, compact receiver buffer) -> the
+    canvas with the decoded tiles written at `offsets` in place, so that the
+    reconstruction crosses to the host once per image. The upload is the
+    compact uint16 + bitmap buffer (CGICCodec.split_compact_buf)."""
+    key = ("dec", mode, offsets, th, tw, out_uint8)
+    cache = _tile_fns(codec)
+    if key not in cache:
+        hl, wl = th // 4, tw // 4
+
+        @torch.no_grad()
+        def fn(canvas, buf):
+            rec = codec._decode_fused_fn(buf, mode, hl, wl, out_uint8)
+            for j, (y, x) in enumerate(offsets):
+                canvas[y:y + th, x:x + tw] = rec[j]
+            return canvas
+
+        cache[key] = fn
+    return cache[key]
+
+
+def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
+                          medium_ratio: float, tile: int = 768,
+                          out_uint8: bool = True, threads: bool = True,
+                          device_unpack: Optional[bool] = None
+                          ) -> List[Tuple[np.ndarray, float,
+                                          List[EncodedImage]]]:
+    """Wire-minimal tiled codec over a sequence of images.
+
+    Per image, two large transfers cross between host and device: the
+    source image up (uint8 when given uint8) and the stitched
+    reconstruction down (uint8 with out_uint8), plus the few-KB packed
+    streams. Tiles are sliced and stitched on the device; the host runs
+    only the entropy stage. With threads, three stages overlap across
+    images: A uploads and dispatches every tile group's encode and pack
+    (this thread), B fetches the packed words, frames and rebuilds, and
+    dispatches each group's decode and stitch, C fetches the canvas.
+
+    Streams and bpp equal compress_tiled(overlap=0)'s; the reconstruction
+    differs only by the uint8 quantization (clip, * 255, truncate, as
+    cli.common.save_png) with out_uint8=True. CONTROL_GIC_PIPE_TRACE=1
+    prints each stage's start and end. device_unpack=True (the device
+    Huffman receiver) is not ported yet and raises.
+
+    Returns [(reconstruction, bpp, bundles), ...] in input order; the stage
+    seconds and bytes land in codec.last_pipeline_stats."""
+    if tile % 16:
+        raise ValueError(f"tile must be a multiple of 16, got {tile}")
+    if device_unpack:
+        raise NotImplementedError(
+            "device_unpack needs the device Huffman receiver (ROADMAP "
+            "queue 1 item 11b), not ported yet")
+    trace = os.environ.get("CONTROL_GIC_PIPE_TRACE") == "1"
+    stats = defaultdict(float)   # each stage writes its own keys
+    t_run0 = time.perf_counter()
+
+    def _tr(msg):
+        if trace:
+            print(f"[pipe {time.perf_counter() - t_run0:7.3f}s] {msg}",
+                  flush=True)
+
+    images = list(images)
+    n = len(images)
+    mode = mode_from_ratios(coarse_ratio, medium_ratio)
+    rc, rm = float(coarse_ratio), float(medium_ratio)
+    out: List[Optional[Tuple]] = [None] * n
+    errors: List[BaseException] = []
+
+    # the plan: each image's padding and its tile offsets by shape, with the
+    # tile's index so that the bundles come back in grid order
+    plans = []
+    for image in images:
+        h0, w0, _ = image.shape
+        (pl, pr, pt, pb), _ = compute_padding(h0, w0)
+        tiles = tile_grid(h0 + pt + pb, w0 + pl + pr, tile)
+        groups: Dict[Tuple[int, int],
+                     List[Tuple[int, int, int]]] = defaultdict(list)
+        for t, (y, x, th, tw) in enumerate(tiles):
+            groups[(th, tw)].append((t, y, x))
+        plans.append(((pt, pb, pl, pr), h0, w0, dict(groups), len(tiles)))
+
+    def stage_a(i):
+        """The image up once; every tile group's encode + pack dispatched,
+        its fetch enqueued behind it."""
+        t0 = time.perf_counter()
+        (pt, pb, pl, pr), _, _, groups, _ = plans[i]
+        _tr(f"A{i} start (pad+H2D)")
+        img_dev = codec._upload(np.pad(images[i], ((pt, pb), (pl, pr),
+                                                   (0, 0))))
+        bufs = []
+        for (th, tw), tyx in groups.items():
+            offs = tuple((y, x) for _, y, x in tyx)
+            fn = _encode_tiles_fn(codec, rc, rm, offs, th, tw)
+            bufs.append(((th, tw), tyx, offs, _Fetch(fn(img_dev))))
+        _tr(f"A{i} dispatched")
+        stats["a_upload_s"] += time.perf_counter() - t0
+        stats["a_upload_bytes"] += images[i].nbytes
+        return bufs
+
+    def stage_b(i, bufs):
+        """Fetch the packed words, frame and rebuild on the host, dispatch
+        each group's decode + stitch into the canvas."""
+        (pt, pb, pl, pr), h0, w0, groups, n_tiles = plans[i]
+        h, w = h0 + pt + pb, w0 + pl + pr
+        canvas = torch.zeros((h, w, 3), device=codec.device,
+                             dtype=torch.uint8 if out_uint8
+                             else torch.float32)
+        bundles: List[Optional[EncodedImage]] = [None] * n_tiles
+        _tr(f"B{i} start (pack fetch)")
+        for (th, tw), tyx, offs, fetch in bufs:
+            t0 = time.perf_counter()
+            fetch.sync()     # "encode still computing" apart from the copy
+            t1 = time.perf_counter()
+            buf = fetch.arrays()[0]
+            stats["b_sync_s"] += t1 - t0
+            stats["b_fetch_s"] += time.perf_counter() - t1
+            stats["b_fetch_bytes"] += buf.nbytes
+            _tr(f"B{i} pack fetched ({buf.nbytes >> 10} KB)")
+            t0 = time.perf_counter()
+            layout = codec._pack_layout(mode, th // 4, tw // 4)
+            encs = [EncodedImage(mode=mode, latent_hw=(th // 4, tw // 4),
+                                 image_hw=(th, tw),
+                                 streams=fused_to_bytes(buf, layout, j))
+                    for j in range(len(offs))]
+            for (t, _, _), e in zip(tyx, encs):
+                bundles[t] = e
+            inds = [codec._rebuild(e)[0] for e in encs]
+            dec_in = codec._compact_decode_input(encs, inds)
+            stats["b_rebuild_s"] += time.perf_counter() - t0
+            fn = _decode_stitch_fn(codec, mode, offs, th, tw, out_uint8)
+            t0 = time.perf_counter()
+            canvas = fn(canvas, codec._upload(dec_in.view(np.int16)))
+            stats["b_h2d_dispatch_s"] += time.perf_counter() - t0
+            stats["b_h2d_bytes"] += dec_in.nbytes
+        _tr(f"B{i} decode dispatched")
+        return bundles, _Fetch(canvas)
+
+    def stage_c(i, bundles, canvas):
+        """Fetch the stitched reconstruction, unpad, count the bits."""
+        (pt, pb, pl, pr), h0, w0, _, _ = plans[i]
+        _tr(f"C{i} start (canvas fetch)")
+        t0 = time.perf_counter()
+        canvas.sync()        # "decode still computing" apart from the copy
+        t1 = time.perf_counter()
+        rec = canvas.arrays()[0]
+        stats["c_sync_s"] += t1 - t0
+        stats["c_fetch_s"] += time.perf_counter() - t1
+        stats["c_fetch_bytes"] += rec.nbytes
+        _tr(f"C{i} canvas fetched")
+        h, w = rec.shape[:2]
+        rec = rec[pt:h - pb if pb else h, pl:w - pr if pr else w]
+        bits = sum(e.num_bytes * 8 for e in bundles)
+        out[i] = (rec, bits / (h0 * w0), bundles)
+
+    def _finish(threaded: bool):
+        stats["threaded"] = float(threaded)
+        stats["wall_s"] = time.perf_counter() - t_run0
+        codec.last_pipeline_stats = dict(stats)
+
+    if not threads or n <= 1:
+        for i in range(n):
+            stage_c(i, *stage_b(i, stage_a(i)))
+        _finish(False)
+        return out
+
+    qa: "queue.Queue" = queue.Queue(maxsize=1)
+    qb: "queue.Queue" = queue.Queue(maxsize=1)
+
+    def worker_b():
+        while True:
+            item = qa.get()
+            if item is None:
+                qb.put(None)
+                return
+            if errors:
+                continue
+            i, bufs = item
+            try:
+                qb.put((i, *stage_b(i, bufs)))
+            except BaseException as e:   # raised on the caller's thread
+                errors.append(e)
+
+    def worker_c():
+        while True:
+            item = qb.get()
+            if item is None:
+                return
+            if errors:
+                continue
+            try:
+                stage_c(*item)
+            except BaseException as e:
+                errors.append(e)
+
+    tb = threading.Thread(target=worker_b, daemon=True)
+    tc = threading.Thread(target=worker_c, daemon=True)
+    tb.start()
+    tc.start()
+    try:
+        for i in range(n):
+            if errors:
+                break
+            qa.put((i, stage_a(i)))
+    finally:
+        # unblock the workers even when stage A raised
+        qa.put(None)
+        tb.join()
+        tc.join()
+    _finish(True)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def compress_tiled_many(codec: CGICCodec, images, coarse_ratio: float,
+                        medium_ratio: float, tile: int = 768,
+                        mesh=None, device_pack: bool = False
+                        ) -> List[Tuple[np.ndarray, float,
+                                        List[EncodedImage]]]:
+    """The tiled codec over a sequence of images, software-pipelined across
+    tile-shape groups and images: while the host frames and rebuilds group
+    k's streams, the device already encodes group k+1 (possibly of the next
+    image), and group k-1's decode drains. Each image's result equals
+    compress_tiled(overlap=0)'s: the same tile batches through the same
+    calls.
+
+    Returns [(reconstruction, bpp, bundles), ...] in input order."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    images = list(images)
+    plans = []        # (padded, (pt, pb, pl, pr), h0, w0, tiles)
+    jobs = []         # (image, (th, tw), tile indices)
+    for i, image in enumerate(images):
+        h0, w0, _ = image.shape
+        (pl, pr, pt, pb), _ = compute_padding(h0, w0)
+        padded = np.pad(image, ((pt, pb), (pl, pr), (0, 0)))
+        tiles = tile_grid(padded.shape[0], padded.shape[1], tile)
+        groups: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+        for j, (_, _, th, tw) in enumerate(tiles):
+            groups[(th, tw)].append(j)
+        plans.append((padded, (pt, pb, pl, pr), h0, w0, tiles))
+        for key, idxs in groups.items():
+            jobs.append((i, key, idxs))
+
+    def dispatch(job):
+        i, (th, tw), idxs = job
+        padded, tiles = plans[i][0], plans[i][4]
+        batch = np.stack([padded[tiles[j][0]:tiles[j][0] + th,
+                                 tiles[j][1]:tiles[j][1] + tw]
+                          for j in idxs])
+        return codec.encode_batch_async(batch, coarse_ratio, medium_ratio,
+                                        device_pack=device_pack)
+
+    state = [(np.zeros(p[0].shape, np.float32), [None] * len(p[4]), [0.0])
+             for p in plans]   # per image: canvas, bundles, bits
+
+    def stitch(job, encs, rec):
+        i, (th, tw), idxs = job
+        recon, bundles, bits = state[i]
+        tiles = plans[i][4]
+        for j, t in enumerate(idxs):
+            y, x, _, _ = tiles[t]
+            recon[y:y + th, x:x + tw] = rec[j]
+            bundles[t] = encs[j]
+            bits[0] += encs[j].num_bytes * 8
+
+    pend = None                  # (job, bundles, reconstruction's fetch)
+    pend_e = dispatch(jobs[0]) if jobs else None
+    for k, job in enumerate(jobs):
+        nxt = dispatch(jobs[k + 1]) if k + 1 < len(jobs) else None
+        encs = codec.encode_finish(pend_e)
+        if pend is not None:
+            stitch(pend[0], pend[1], pend[2].arrays()[0])
+        pend = (job, encs, _Fetch(codec.decode_batch_async(encs)))
+        pend_e = nxt
+    if pend is not None:
+        stitch(pend[0], pend[1], pend[2].arrays()[0])
+
+    out = []
+    for (padded, (pt, pb, pl, pr), h0, w0, _), (recon, bundles, bits) in \
+            zip(plans, state):
+        h, w = padded.shape[:2]
+        out.append((recon[pt:h - pb if pb else h, pl:w - pr if pr else w],
+                    bits[0] / (h0 * w0), bundles))
+    return out

@@ -201,7 +201,8 @@ def test_infer_cli_writes_streams_pngs_and_bpp(codecs, tmp_path, monkeypatch,
         Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
             src / f"{i}.png")
     assert [im.shape for im in EvalImageDataset(str(src))] == [(64, 64, 3)] * 3
-    monkeypatch.setattr(infer, "build_codec", lambda ckpt, device: codec)
+    monkeypatch.setattr(infer, "build_codec",
+                        lambda ckpt, device, use_ema: codec)
     out = tmp_path / "out"
     infer.main(["-i", str(src), "-o", str(out), "--device", "cpu",
                 "--batch", str(batch)])

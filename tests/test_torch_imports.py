@@ -23,6 +23,10 @@ import control_gic_tpu_torch.utils.checkpoint, control_gic_tpu_torch.utils.loggi
 import control_gic_tpu_torch.utils.draw, control_gic_tpu_torch.data
 import control_gic_tpu_torch.parallel, control_gic_tpu_torch.parallel.tiling
 import control_gic_tpu_torch.cli.infer_highres
+import control_gic_tpu_torch.coding.native_lib
+import control_gic_tpu_torch.coding.huffman_device
+import control_gic_tpu_torch.coding.stream_pack
+import control_gic_tpu_torch.coding.huffman_decode_device
 import chip_smoke
 """
 CHECK = """

@@ -1,7 +1,8 @@
 """The port's high-res CLI on PNGs in a temp dir, at a tiny config on the
 CPU: it writes the reconstructions and bpp.txt with the bpp of JAX's CLI
 (run on its per-tile path, --no-pipeline, with the same weights and counts),
-and the options whose paths are not ported raise."""
+and the options whose paths are not ported raise. The pipeline and
+--device_pack are held in test_torch_tiling_device.py."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -79,8 +80,7 @@ def test_cli_writes_pngs_and_bpp_like_jax(codecs, pngs, tmp_path,
 
 
 @pytest.mark.parametrize("flag, item", [(["--spatial"], "item 14"),
-                                        (["--mesh-devices", "4"], "13-14"),
-                                        (["--device_pack"], "item 11")])
+                                        (["--mesh-devices", "4"], "13-14")])
 def test_unported_options_raise(codecs, pngs, tmp_path, flag, item):
     _, codec = codecs
     with pytest.raises(NotImplementedError, match=item):
