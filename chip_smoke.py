@@ -16,11 +16,18 @@ Phases, each printing a line of its own:
      the bound, the forward's with its key splits;
   4. 256x256 path: the full-width codec (random weights from a seed, bf16)
      compresses 256x256 images through stream files in all 7 modes, with a
-     receiver-only decode from the files and the kernel launch counts, then
-     a profile of two round trips;
+     receiver-only decode from the files and the kernel launch counts. The
+     codec runs its batches as CUDA graphs (the default): a first run
+     captures the programs (their launches counted once), a second replays
+     them; the same runs through the same model with graphs=False give the
+     same streams, reconstructions within 1e-3 and the same launches; then
+     a profile of two round trips each way (wall, device busy, idle share,
+     kernels per image, programs captured, capture seconds, memory
+     reserved and the shared pool's bytes);
   5. Kodak path: the same codec on 512x768 (Kodak-shape) images in all 7
      modes, where the chained norm+conv and moment kernels engage, with the
-     launch counts per image and a profile of one round trip;
+     launch counts per image, graphs against eager as in phase 4, and a
+     profile of one round trip each way;
   6. f32 parity at 256x256: the card (kernels) against the CPU (plain
      versions), same weights;
   7. Kodak f32: one 512x768 image through the f32 model on the card with the
@@ -44,7 +51,9 @@ Phases, each printing a line of its own:
      CONTROL_GIC_FUSED_NORM=1, each with bpp, PSNR, ms per image and exact
      launch counts, each profiled (kernels per image); then once with
      --no-pipeline (the per-tile path) under the default switches: the same
-     launches, the same bpp to the last digit, PNGs within 1 of 255;
+     launches, the same bpp to the last digit, PNGs within 1 of 255; then
+     compress_tiled_device with float reconstructions, graphs against
+     eager as in phase 4, each profiled;
  11. tile f32: one 768x768 tile through the f32 model with all three
      switches set, kernels against ops.plain_versions();
  12. entropy and pipeline (the phase-4 codec, full width, bf16): 256x256 in
@@ -59,7 +68,9 @@ Phases, each printing a line of its own:
      and compress_tiled per image: the same streams, exact launches (3 x
      the default's tiled counts), ms per image, stage seconds, a profile;
      entropy seconds per Kodak image with the C++ coder and the pure-Python
-     coders (the phase fails unless the C++ coder is loaded).
+     coders (the phase fails unless the C++ coder is loaded). Both pipelines
+     also run with graphs=False: the same streams, reconstructions within
+     1e-3 and launches as with CUDA graphs, each profiled.
 Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
 and dq backward), the SpatialNorm apply and the per-call norm+conv, and the
 gradients of the chain, the per-call op, the switched SpatialNorm and the
@@ -1005,12 +1016,46 @@ def make_image(seed: int, hw=IMAGE):
     return np.clip(0.6 * flat + ramp + noise, 0, 1).astype(np.float32)
 
 
+def _max_diff(recs, want) -> float:
+    import numpy as np
+    return max(float(np.abs(np.asarray(a, np.float32)
+                            - np.asarray(b, np.float32)).max())
+               for a, b in zip(recs, want))
+
+
+def graph_vs_eager(dev: dict, label: str, n: int, graph, eager,
+                   streams_g, streams_e, recs_g, recs_e, launches_g,
+                   launches_e, wall_g, wall_e) -> None:
+    """Hold a path's run with CUDA graphs against the same inputs run
+    eagerly (graphs=False): streams byte-identical, reconstructions within
+    1e-3, launch counts equal; log both walls and the programs."""
+    diff = _max_diff(recs_g, recs_e)
+    log(f"graph vs eager {label}", images=n, streams_identical=(
+        streams_g == streams_e), recon_max_abs_diff=diff,
+        launches_equal=launches_g == launches_e, launches=launches_g,
+        wall_ms_per_image_graph=1e3 * wall_g / n,
+        wall_ms_per_image_eager=1e3 * wall_e / n,
+        programs=graph._programs.stats(), card=dev["nvidia_smi"])
+    if streams_g != streams_e:
+        raise AssertionError(f"{label}: the streams with CUDA graphs differ "
+                             "from the eager ones")
+    if not diff <= 1e-3:
+        raise AssertionError(f"{label}: the reconstructions with CUDA graphs "
+                             f"differ from the eager ones by {diff}")
+    if launches_g != launches_e:
+        raise AssertionError(f"{label}: launches with CUDA graphs "
+                             f"{launches_g}, eagerly {launches_e}")
+
+
 def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int,
-                    per_image=None, tag: str = ""):
+                    per_image=None, tag: str = "", eager=None):
     """The full-width codec through stream files: n_mode0 images in mode 0,
     then one in each of modes 1-6, each launching per_image (PER_IMAGE[hw]
-    by default). Returns the kernel launch counts of that run and the
-    images."""
+    by default). After a warm-up image, a first run captures the programs
+    of modes 1-6 (their launches counted once, as eagerly), a second run
+    replays every program; with `eager` (the same model, graphs=False) the
+    same runs eagerly, held against the replays. Returns the kernel launch
+    counts of the replayed run and the images."""
     import numpy as np
     import torch
 
@@ -1021,22 +1066,32 @@ def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int,
     images = [make_image(seed, hw) for seed in range(n_mode0)]
     runs = [(images[i], RATIOS[0]) for i in range(n_mode0)]
     runs += [(images[m % n_mode0], RATIOS[m]) for m in range(1, 7)]
+    expected = {k: v * len(runs) for k, v in per_image.items()}
     codec.compress(images[0], *RATIOS[0])            # warm-up, not counted
     torch.cuda.synchronize()
 
-    reset_launches()
-    results, stats = [], {}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i, (img, ratios) in enumerate(runs):
-        out_dir = os.path.join(workdir, f"{label}_run{i}")
-        results.append((out_dir,) + codec.compress(
-            img, *ratios, out_dir=out_dir,
-            stats=stats if i < n_mode0 else None))
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = read_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    def path(c, name):
+        reset_launches()
+        results, stats = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i, (img, ratios) in enumerate(runs):
+            out_dir = os.path.join(workdir, f"{label}_{name}_run{i}")
+            results.append((out_dir,) + c.compress(
+                img, *ratios, out_dir=out_dir,
+                stats=stats if i < n_mode0 else None))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        if launches != expected:
+            raise AssertionError(f"{label} {name}: kernel launches "
+                                 f"{launches} for {len(runs)} images, "
+                                 f"expected {expected}")
+        return (results, launches, wall_s, stats,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    _, _, capture_wall_s, _, _ = path(codec, "capture")
+    results, launches, wall_s, stats, peak_gib = path(codec, "graph")
 
     for i, (out_dir, rec, bpp, enc) in enumerate(results):
         mode = i - n_mode0 + 1 if i >= n_mode0 else 0
@@ -1050,20 +1105,29 @@ def phase_main_path(dev: dict, codec, workdir: str, hw, n_mode0: int,
         log(f"image {label}", run=i, mode=enc.mode, bpp=bpp,
             stream_bytes=enc.num_bytes, recv_only_max_diff=diff,
             rec_mean=float(rec.mean()))
-    expected = {k: v * len(runs) for k, v in per_image.items()}
-    if launches != expected:
-        raise AssertionError(f"{label}: kernel launches {launches} for "
-                             f"{len(runs)} images, expected {expected}")
-    per_image = {k: 1e3 * v / n_mode0 for k, v in stats.items()}
+    per_mode0 = {k: 1e3 * v / n_mode0 for k, v in stats.items()}
     log(f"main path {label}", images=len(runs),
         modes=sorted({r[3].mode for r in results}), launches=launches,
         launches_per_image={k: v / len(runs) for k, v in launches.items()},
         peak_mem_gib=peak_gib, wall_ms_per_image=1e3 * wall_s / len(runs),
-        encode_ms=per_image["encode_s"],
-        entropy_coding_ms=(per_image["entropy_s"] + per_image["files_s"]
-                           + per_image["rebuild_s"]),
-        decode_ms=per_image["decode_s"], ms_per_image_mode0=per_image,
-        card=dev["nvidia_smi"])
+        capture_run_wall_ms_per_image=1e3 * capture_wall_s / len(runs),
+        encode_ms=per_mode0["encode_s"],
+        entropy_coding_ms=(per_mode0["entropy_s"] + per_mode0["files_s"]
+                           + per_mode0["rebuild_s"]),
+        decode_ms=per_mode0["decode_s"], ms_per_image_mode0=per_mode0,
+        programs=codec._programs.stats(), card=dev["nvidia_smi"])
+    if eager is not None:
+        e_results, e_launches, e_wall_s, e_stats, _ = path(eager, "eager")
+        e_mode0 = {k: 1e3 * v / n_mode0 for k, v in e_stats.items()}
+        log(f"main path {label} eager", wall_ms_per_image=1e3 * e_wall_s
+            / len(runs), encode_ms=e_mode0["encode_s"],
+            decode_ms=e_mode0["decode_s"], ms_per_image_mode0=e_mode0,
+            card=dev["nvidia_smi"])
+        graph_vs_eager(dev, label, len(runs), codec, eager,
+                       [r[3].streams for r in results],
+                       [r[3].streams for r in e_results],
+                       [r[1] for r in results], [r[1] for r in e_results],
+                       launches, e_launches, wall_s, e_wall_s)
     return launches, images
 
 
@@ -1104,23 +1168,24 @@ def _shares(by_name: dict, keys) -> dict:
             for key in keys}
 
 
-def phase_profile(dev: dict, codec, images, label: str) -> None:
+def phase_profile(dev: dict, codec, images, label: str, eager=None) -> None:
     """torch.profiler over mode-0 round trips of `images`: device busy and
-    idle share of the host wall time, and device time by kernel."""
+    idle share of the host wall time, and device time by kernel; with
+    `eager`, the same round trips eagerly (label + " eager")."""
     n = len(images)
-
-    def run():
-        for img in images:
-            codec.compress(img, *RATIOS[0])
-
-    log_profile(dev, label, n, *device_profile(run))
+    for c, name in ((codec, label), (eager, f"{label} eager")):
+        if c is not None:
+            log_profile(dev, name, n, *device_profile(
+                lambda: [c.compress(img, *RATIOS[0]) for img in images]),
+                programs=c._programs.stats())
 
 
 def log_profile(dev: dict, label: str, n: int, wall_us, busy, kernels,
-                by_name) -> None:
+                by_name, programs=None) -> None:
     if busy is None:
         log(f"profile {label}", device_time="not measured (the profiler "
-            "recorded no device events)", wall_ms_per_image=wall_us / n / 1e3)
+            "recorded no device events)", wall_ms_per_image=wall_us / n / 1e3,
+            programs=programs)
         return
     # "flash_fwd_": every device kernel of the forward (the bf16 wgmma and
     # f32 kernels and the split-KV combine)
@@ -1138,7 +1203,7 @@ def log_profile(dev: dict, label: str, n: int, wall_us, busy, kernels,
         moments_share_of_device_time=shares["gn_moments_kernel"],
         apply_share_of_device_time=shares["apply_kernel"],
         top_kernels_ms_per_image={k: v / n / 1e3 for k, v in top},
-        card=dev["nvidia_smi"])
+        programs=programs, card=dev["nvidia_smi"])
 
 
 def phase_f32_parity(image) -> None:
@@ -1367,17 +1432,22 @@ def tiled_expected(setting: str, h: int, w: int) -> dict:
     return total
 
 
-def phase_tiled(dev: dict, codec, workdir: str) -> dict:
+def phase_tiled(dev: dict, codec, workdir: str, eager) -> dict:
     """Phase 10: the high-res CLI on one 1356x2040 PNG under each setting of
-    TILED_SETTINGS through its default path (the pipeline), after an
-    untimed warm-up run, then once with --no-pipeline under the default
+    TILED_SETTINGS through its default path (the pipeline), each after an
+    untimed warm-up run (which captures the setting's programs), then once
+    with --no-pipeline under the default
     switches; bpp, PSNR, ms per image and exact launches; a profile of each
-    setting. Returns each setting's launches."""
+    setting. Then, under the default switches, compress_tiled_device on
+    the cropped image with float reconstructions, replayed CUDA graphs
+    against `eager` (graphs=False), each profiled. Returns each setting's
+    launches."""
     import numpy as np
     import torch
     from PIL import Image
 
     from control_gic_tpu_torch.cli import infer_highres
+    from control_gic_tpu_torch.parallel.tiling import compress_tiled_device
 
     src = os.path.join(workdir, "highres")
     os.makedirs(src)
@@ -1396,6 +1466,9 @@ def phase_tiled(dev: dict, codec, workdir: str) -> dict:
     for setting, env in [*TILED_SETTINGS.items(), ("no_pipeline", {})]:
         extra = ["--no-pipeline"] if setting == "no_pipeline" else []
         with switches(**env):
+            if env:                 # capture the setting's programs, untimed
+                run(f"hr_warmup_{setting}", *extra)
+                torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
             (_, bpp, psnr, _), = run(f"hr_{setting}", *extra)
@@ -1419,7 +1492,8 @@ def phase_tiled(dev: dict, codec, workdir: str) -> dict:
                 raise AssertionError(f"tiled {setting}: bpp {bpp}, PSNR "
                                      f"{psnr}")
             log_profile(dev, f"tiled {setting}", 1,
-                        *device_profile(lambda: run("hr_prof", *extra)))
+                        *device_profile(lambda: run("hr_prof", *extra)),
+                        programs=codec._programs.stats())
     if bpps["no_pipeline"] != bpps["default"]:
         raise AssertionError(f"tiled: --no-pipeline bpp "
                              f"{bpps['no_pipeline']!r} != the pipeline's "
@@ -1434,6 +1508,44 @@ def phase_tiled(dev: dict, codec, workdir: str) -> dict:
     if diff.max() > 1:
         raise AssertionError(f"tiled: the pipeline's PNG differs from the "
                              f"per-tile path's by {int(diff.max())} of 255")
+
+    # the CLI's default path eagerly, timed as the settings above
+    reset_launches()
+    t0 = time.perf_counter()
+    (_, bpp_e, _, _), = infer_highres.main(
+        ["-i", src, "-o", os.path.join(workdir, "hr_eager"), "--tile",
+         str(TILE), "--ratios", "0.1", "0.4"], codec=eager)
+    torch.cuda.synchronize()
+    log("tiled default eager", ms_per_image=1e3 * (time.perf_counter() - t0),
+        bpp=bpp_e, launches_equal=read_launches() == launches["default"],
+        stats=eager.last_pipeline_stats, card=dev["nvidia_smi"])
+    if bpp_e != bpps["default"] or read_launches() != launches["default"]:
+        raise AssertionError("tiled: the CLI's eager run differs from its "
+                             "run with CUDA graphs")
+
+    img_u8 = [(img[:ch, :cw] * 255).astype(np.uint8)]
+    device_run = lambda c: compress_tiled_device(c, img_u8, *RATIOS[0],
+                                                 tile=TILE, out_uint8=False)
+    device_run(codec)           # captures the float decode programs
+    torch.cuda.synchronize()
+    res = {}
+    for name, c in (("graph", codec), ("eager", eager)):
+        reset_launches()
+        t0 = time.perf_counter()
+        (rec, _, bundles), = device_run(c)
+        torch.cuda.synchronize()
+        res[name] = (rec, [b.streams for b in bundles], read_launches(),
+                     time.perf_counter() - t0)
+        if res[name][2] != tiled_expected("default", ch, cw):
+            raise AssertionError(f"tiled {name}: launches {res[name][2]}")
+    (rec_g, st_g, l_g, w_g), (rec_e, st_e, l_e, w_e) = res["graph"], \
+        res["eager"]
+    graph_vs_eager(dev, f"tiled {ch}x{cw}", 1, codec, eager, st_g, st_e,
+                   [rec_g], [rec_e], l_g, l_e, w_g, w_e)
+    for c, name in ((codec, "graph"), (eager, "eager")):
+        log_profile(dev, f"tiled compress_tiled_device {name}", 1,
+                    *device_profile(lambda: device_run(c)),
+                    programs=c._programs.stats())
     return launches
 
 
@@ -1477,11 +1589,12 @@ def _streams(batches) -> list:
     return [e.streams for encs in batches for e in encs]
 
 
-def phase_entropy_pipeline(dev: dict, codec) -> None:
+def phase_entropy_pipeline(dev: dict, codec, eager) -> None:
     """Phase 12: device packing against the host coder (256x256, 7 modes),
     roundtrip_pipelined against serial batches (512x768), the tiled
-    pipeline against compress_tiled (1356x2040 cropped to 1344x2032), and
-    the entropy coders' seconds per Kodak image, C++ against Python."""
+    pipeline against compress_tiled (1356x2040 cropped to 1344x2032), each
+    pipeline also with CUDA graphs against `eager` (graphs=False), and the
+    entropy coders' seconds per Kodak image, C++ against Python."""
     import numpy as np
     import torch
 
@@ -1554,8 +1667,25 @@ def phase_entropy_pipeline(dev: dict, codec) -> None:
         ms_per_image_serial=ms_s, max_abs_diff=diff, launches=expected,
         stats=stats, stage_seconds_sum=stage_sum,
         overlap=stage_sum / stats["wall_s"], card=dev["nvidia_smi"])
-    log_profile(dev, "pipeline 512x768", n_img, *device_profile(pipelined))
-    log_profile(dev, "serial 512x768", n_img, *device_profile(serial))
+    log_profile(dev, "pipeline 512x768", n_img, *device_profile(pipelined),
+                programs=codec._programs.stats())
+    log_profile(dev, "serial 512x768", n_img, *device_profile(serial),
+                programs=codec._programs.stats())
+
+    # the pipeline eagerly: the same streams, recons and launches
+    pipelined_eager = lambda: eager.roundtrip_pipelined(
+        batches, *RATIOS[0], device_pack=True, threads=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    recs_e, encs_e = pipelined_eager()
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    graph_vs_eager(dev, "pipeline 512x768", n_img, codec, eager,
+                   _streams(encs_p), _streams(encs_e), recs_p, recs_e,
+                   expected, read_launches(), ms_p * n_img / 1e3, wall_e)
+    log_profile(dev, "pipeline 512x768 eager", n_img,
+                *device_profile(pipelined_eager),
+                programs=eager._programs.stats())
 
     # 3. the tiled pipeline against compress_tiled, 1356x2040 -> 1344x2032
     h, w = HIGHRES
@@ -1606,7 +1736,31 @@ def phase_entropy_pipeline(dev: dict, codec) -> None:
         raise AssertionError(f"phase 12: the tiled pipeline's pixels differ "
                              f"from compress_tiled's by {px} of 255")
     log_profile(dev, "tiled pipeline 1344x2032", TILED_IMAGES,
-                *device_profile(tiled))
+                *device_profile(tiled), programs=codec._programs.stats())
+
+    # the tiled pipeline with float reconstructions (programs that phase 10
+    # captured), CUDA graphs against eager
+    res = {}
+    for name, c in (("graph", codec), ("eager", eager)):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = compress_tiled_device(c, imgs_u8, *RATIOS[0], tile=TILE,
+                                    threads=True, out_uint8=False)
+        torch.cuda.synchronize()
+        res[name] = (out, read_launches(), time.perf_counter() - t0)
+        if res[name][1] != expected:
+            raise AssertionError(f"phase 12 tiled {name}: launches "
+                                 f"{res[name][1]}, expected {expected}")
+    (out_g, l_g, w_g), (out_e, l_e, w_e) = res["graph"], res["eager"]
+    graph_vs_eager(dev, "tiled pipeline 1344x2032", TILED_IMAGES, codec,
+                   eager, [b.streams for r in out_g for b in r[2]],
+                   [b.streams for r in out_e for b in r[2]],
+                   [r[0] for r in out_g], [r[0] for r in out_e], l_g, l_e,
+                   w_g, w_e)
+    log_profile(dev, "tiled pipeline 1344x2032 eager", TILED_IMAGES,
+                *device_profile(lambda: compress_tiled_device(
+                    eager, imgs_u8, *RATIOS[0], tile=TILE, threads=True)),
+                programs=eager._programs.stats())
 
     # 4. entropy seconds per Kodak image, C++ against pure Python
     kodak = [make_image(100 + i, KODAK) for i in range(4)]
@@ -1917,32 +2071,42 @@ def phase_train_cli(workdir: str) -> None:
 def main() -> None:
     import tempfile
 
+    import numpy as np
+
     from control_gic_tpu_torch.cli.common import build_codec
+    from control_gic_tpu_torch.codec import CGICCodec
 
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     rows = phase_kernels(dev)
     t0 = time.perf_counter()
-    codec = build_codec(device="cuda", seed=0)
+    codec = build_codec(device="cuda", seed=0)     # CUDA graphs, by default
     assert codec.model.config.dtype == "bfloat16", codec.model.config
+    assert codec._programs.backend is not None
+    # the same model and counts (build_codec's ones), every batch eager
+    eager = CGICCodec(codec.model, np.ones(codec.model.config.n_embed,
+                                           np.int64), graphs=False)
     log("main path setup", params=sum(p.numel()
                                       for p in codec.model.parameters()),
         dtype=codec.model.config.dtype, seconds=time.perf_counter() - t0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        _, images = phase_main_path(dev, codec, workdir, IMAGE, 4)
-        phase_profile(dev, codec, images[:2], "256x256")
-        launches, kodak = phase_main_path(dev, codec, workdir, KODAK, 2)
-        phase_profile(dev, codec, kodak[:1], "512x768")
+        _, images = phase_main_path(dev, codec, workdir, IMAGE, 4,
+                                    eager=eager)
+        phase_profile(dev, codec, images[:2], "256x256", eager)
+        launches, kodak = phase_main_path(dev, codec, workdir, KODAK, 2,
+                                          eager=eager)
+        phase_profile(dev, codec, kodak[:1], "512x768", eager)
         with switches(CONTROL_GIC_FUSED_NORM="1"):
             phase_main_path(dev, codec, workdir, IMAGE, 4,
                             PER_IMAGE_FUSED_NORM, " fused_norm1")
             phase_profile(dev, codec, images[:2], "256x256 fused_norm1")
-        tiled = phase_tiled(dev, codec, workdir)
-    phase_entropy_pipeline(dev, codec)
+        tiled = phase_tiled(dev, codec, workdir, eager)
+    phase_entropy_pipeline(dev, codec, eager)
+    log("programs", **codec._programs.stats(), card=dev["nvidia_smi"])
     phase_f32_parity(make_image(0))
     phase_kodak_f32(codec, kodak[0])
-    del codec
+    del codec, eager
     phase_tile_f32(make_image(7, (TILE, TILE)))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         train_launches = phase_train(dev, workdir)

@@ -55,6 +55,7 @@ from .coding.stream_pack import (fuse_packed, fused_layout, fused_to_bytes,
 from .models.cgic import CGIC
 from .ops.router import mode_from_ratios
 from .utils.device import resolve_device
+from .utils.programs import CUDAGraphs, Programs
 
 STREAM_FILES = {
     "indices_coarse": "indices_coarse.bin",
@@ -176,10 +177,18 @@ def _up4(m: np.ndarray) -> np.ndarray:
 class CGICCodec:
     """Binds a CGIC model on `device` to the entropy coders. The model is
     moved to `device`; CUDA is the default and is never replaced by the CPU
-    quietly."""
+    quietly.
+
+    The device half of each batch runs as one program per static key and
+    input shape, as JAX jits it (`_encode_fns`, `_encode_pack_fns`,
+    `_decode_fns`, `_tile_fns`; utils/programs.py): on CUDA a CUDA graph,
+    captured at the key's first call and replayed after it. graphs=None
+    means on for a CUDA codec; graphs=False runs every batch eagerly, as
+    `jax.disable_jit()` does. A codec on the CPU makes no graph."""
 
     def __init__(self, model: CGIC, counts: Sequence[int],
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 graphs: Optional[bool] = None):
         counts = np.asarray(counts)
         # the compact receiver ships index grids as uint16
         # (split_compact_buf); the reference codebook has 1024 entries
@@ -203,6 +212,13 @@ class CGICCodec:
         # the receiver the last decode_batch used: always 'host' here (the
         # device-unpack receiver is not ported yet)
         self.last_decode_path: Optional[str] = None
+        self._programs = Programs(
+            self.model, CUDAGraphs(self.device)
+            if self.device.type == "cuda" and graphs is not False else None)
+        self._encode_fns = self._programs.cache()
+        self._encode_pack_fns = self._programs.cache()
+        self._decode_fns = self._programs.cache()
+        self._tile_fns = self._programs.cache()   # parallel/tiling.py
 
     # ------------------------------------------------------- host <-> device
 
@@ -244,10 +260,21 @@ class CGICCodec:
         """Device half of the sender: [N, H, W, 3] -> numpy (indices, m_c,
         m_m, m_f) and the mode."""
         self._check_images(images)
-        enc = self.model.encode(self._to_input(images), float(coarse_ratio),
-                                float(medium_ratio), per_sample=per_sample)
-        return (_Fetch(enc.indices, *enc.router.masks).arrays(),
-                enc.router.mode)
+        rc, rm = float(coarse_ratio), float(medium_ratio)
+        out = self._encode(self._upload(images), rc, rm, per_sample)
+        return _Fetch(*out).arrays(), mode_from_ratios(rc, rm)
+
+    def _encode(self, x: torch.Tensor, rc: float, rm: float,
+                per_sample: bool):
+        """The encode program (JAX `_encode_fn`): [N, H, W, 3] on the device
+        (uint8 or float) -> (indices, m_c, m_m, m_f)."""
+        def fn(x):
+            enc = self.model.encode(self._input_from_device(x), rc, rm,
+                                    per_sample=per_sample)
+            return (enc.indices, *enc.router.masks)
+
+        return self._programs.run(self._encode_fns, (rc, rm, per_sample),
+                                  fn, x)
 
     def _tables_on_device(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self._device_tables_dev is None:
@@ -255,6 +282,15 @@ class CGICCodec:
                 torch.from_numpy(t.astype(np.int64)).to(self.device)
                 for t in self._device_tables)
         return self._device_tables_dev
+
+    def _encode_pack(self, x: torch.Tensor, rc: float, rm: float,
+                     per_sample: bool) -> torch.Tensor:
+        """The encode + pack program (JAX `_encode_pack_fn`): [N, H, W, 3]
+        on the device (uint8 or float) -> _encode_pack_fn's buffer."""
+        return self._programs.run(
+            self._encode_pack_fns, (rc, rm, per_sample),
+            lambda x: self._encode_pack_fn(self._input_from_device(x), rc,
+                                           rm, per_sample), x)
 
     def _encode_pack_fn(self, x: torch.Tensor, rc: float, rm: float,
                         per_sample: bool) -> torch.Tensor:
@@ -508,6 +544,13 @@ class CGICCodec:
             rows.append(np.concatenate(parts))
         return np.stack(rows)
 
+    def _decode(self, buf: torch.Tensor, mode: int, hl: int, wl: int,
+                out_uint8: bool) -> torch.Tensor:
+        """The decode program (JAX `_decode_fused_fn`) of _decode_fused_fn."""
+        return self._programs.run(
+            self._decode_fns, (mode, hl, wl, out_uint8),
+            lambda b: self._decode_fused_fn(b, mode, hl, wl, out_uint8), buf)
+
     def _decode_fused_fn(self, buf: torch.Tensor, mode: int, hl: int,
                          wl: int, out_uint8: bool) -> torch.Tensor:
         """The receiver's device half from ONE compact buffer per batch (one
@@ -554,15 +597,14 @@ class CGICCodec:
         self._check_images(images)
         n, h, w, _ = images.shape
         rc, rm = float(coarse_ratio), float(medium_ratio)
-        x = self._to_input(images)
-        hw = (h // 4, w // 4)
+        x = self._upload(images)
+        pend = _PendingEncode(mode_from_ratios(rc, rm), (h // 4, w // 4),
+                              (h, w), n)
         if device_pack and self._device_tables is not None:
-            buf = self._encode_pack_fn(x, rc, rm, per_sample)
-            return _PendingEncode(mode_from_ratios(rc, rm), hw, (h, w), n,
-                                  packed=_Fetch(buf))
-        enc = self.model.encode(x, rc, rm, per_sample=per_sample)
-        return _PendingEncode(enc.router.mode, hw, (h, w), n,
-                              enc=_Fetch(enc.indices, *enc.router.masks))
+            pend.packed = _Fetch(self._encode_pack(x, rc, rm, per_sample))
+        else:
+            pend.enc = _Fetch(*self._encode(x, rc, rm, per_sample))
+        return pend
 
     def encode_finish(self, pending: _PendingEncode,
                       stats: Optional[dict] = None) -> List[EncodedImage]:
@@ -609,8 +651,8 @@ class CGICCodec:
         inds = [self._rebuild(e)[0] for e in encoded]
         buf = self._compact_decode_input(encoded, inds)
         t1 = time.perf_counter()
-        out = self._decode_fused_fn(self._upload(buf.view(np.int16)), mode,
-                                    *hl_wl, out_uint8)
+        out = self._decode(self._upload(buf.view(np.int16)), mode, *hl_wl,
+                           out_uint8)
         _acc(stats, "b_rebuild_s", t1 - t0)
         _acc(stats, "b_h2d_dispatch_s", time.perf_counter() - t1)
         _acc(stats, "b_h2d_bytes", buf.nbytes)

@@ -129,6 +129,16 @@ def count_launch(counts: dict, key: str) -> None:
         counts[key] += 1
 
 
+def add_launches(counts: dict, delta: dict) -> None:
+    """Add delta[key] launches to counts[key] for each key, under
+    count_launch's lock: a replayed CUDA graph runs no wrapper, so its
+    program adds the launches its capture counted
+    (utils/programs.Program)."""
+    with _COUNT_LOCK:
+        for key, n in delta.items():
+            counts[key] += n
+
+
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     """Raise unless a launcher's return code is 0 (a cudaError_t code > 0,
     -1 for arguments the kernel refused)."""

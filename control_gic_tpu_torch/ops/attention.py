@@ -58,17 +58,20 @@ _SPLITS = {}
 _MAX_C = 512
 
 
-def _scale(c: int) -> torch.Tensor:
-    # jnp.asarray(c, float32) ** -0.5 in the JAX path: a float32 power
-    return torch.tensor(float(c), dtype=torch.float32) ** -0.5
+def _scale(c: int) -> float:
+    """jnp.asarray(c, float32) ** -0.5 in the JAX path: a float32 power,
+    taken on the host (a Python float of the f32 value, which a multiply
+    with an f32 tensor rounds to itself), so that no copy to the device
+    syncs a captured program."""
+    return (torch.tensor(float(c), dtype=torch.float32) ** -0.5).item()
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ · C^-0.5) v with both products accumulated in f32 and the
     weights cast to q's dtype before the second (JAX `attention_xla`)."""
-    scale = _scale(q.shape[-1]).to(q.device)
-    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * _scale(
+        q.shape[-1])
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(w.float(), v.float()).to(q.dtype)
 

@@ -4,7 +4,9 @@
   - argmin keeps the first (lowest) index on ties;
   - loss = mean((sg(zq) - z)^2) + beta * mean((zq - sg(z))^2), beta 0.25;
   - straight-through zq = z + sg(zq - z);
-  - codebook usage counts by bincount.
+  - codebook usage counts, a histogram of fixed length (jnp.bincount with
+    length=): a scatter-add, as torch.bincount reads the largest index back
+    to the host and so could not run inside a captured program.
 The latent is NCHW [B, D, H, W]; indices are [B, H, W].
 """
 from __future__ import annotations
@@ -41,7 +43,10 @@ def vq_quantize(z: torch.Tensor, codebook: torch.Tensor,
     loss = (torch.mean(torch.square(qf32.detach() - zf32))
             + beta * torch.mean(torch.square(qf32 - zf32.detach())))
     z_q = z + (z_q - z).detach()
-    counts = torch.bincount(indices.reshape(-1), minlength=codebook.shape[0])
+    flat = indices.reshape(-1)
+    counts = torch.zeros(codebook.shape[0], dtype=torch.int64,
+                         device=flat.device).index_add_(
+                             0, flat, torch.ones_like(flat))
     return VQResult(z_q=z_q, loss=loss, indices=indices, counts=counts)
 
 

@@ -16,6 +16,9 @@ import torch.nn.functional as F
 # (a=1, W0+W1 | W2).
 _PHASE = (((1.0, 0.0, 0.0), (0.0, 1.0, 1.0)),   # a=0: taps (i-1, i)
           ((1.0, 1.0, 0.0), (0.0, 0.0, 1.0)))   # a=1: taps (i, i+1)
+# _PHASE on each device it was asked for: made on the first call, so that
+# later calls (a captured program among them) copy nothing from the host
+_PHASE_ON: dict = {}
 
 
 def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -47,7 +50,10 @@ def phase_conv_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     [4*Co, C, 2, 2] (output channel (a, b, o) = a*2*Co + b*Co + o), combined
     in f32 and cast to `dtype`."""
     co, c = weight.shape[:2]
-    a = torch.tensor(_PHASE, dtype=torch.float32, device=weight.device)
+    a = _PHASE_ON.get(weight.device)
+    if a is None:
+        a = _PHASE_ON[weight.device] = torch.tensor(
+            _PHASE, dtype=torch.float32, device=weight.device)
     k4 = torch.einsum("aup,bvq,oipq->aboiuv", a, a, weight.float())
     return k4.reshape(4 * co, c, 2, 2).to(dtype)
 

@@ -144,59 +144,57 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     return recon, total_bits / (h0 * w0), bundles
 
 
-def _tile_fns(codec: CGICCodec) -> dict:
-    """The codec's cache of tile programs, by their static arguments."""
-    cache = getattr(codec, "_tile_fns", None)
-    if cache is None:
-        cache = codec._tile_fns = {}
-    return cache
+@torch.no_grad()
+def _encode_tiles(codec: CGICCodec, image: torch.Tensor, rc: float,
+                  rm: float, offsets: tuple, th: int, tw: int
+                  ) -> torch.Tensor:
+    """The tile encode program: image [H, W, 3] on the device (uint8 or
+    float) -> the fused packed stream buffer of the tiles at `offsets`,
+    sliced on the device, so that the image crosses to the device once, not
+    once per tile group."""
+    if codec._device_tables is None:
+        raise ValueError(
+            "compress_tiled_device needs a Huffman table the device "
+            "packer takes (codes <= 32 bits); use compress_tiled() or "
+            "compress_tiled_many() for this codec")
+
+    def fn(image):
+        tiles = torch.stack([image[y:y + th, x:x + tw] for y, x in offsets])
+        return codec._encode_pack_fn(codec._input_from_device(tiles), rc, rm,
+                                     per_sample=True)
+
+    return codec._programs.run(codec._tile_fns,
+                               ("enc", rc, rm, offsets, th, tw), fn, image)
 
 
-def _encode_tiles_fn(codec: CGICCodec, rc: float, rm: float,
-                     offsets: tuple, th: int, tw: int):
-    """image [H, W, 3] on the device (uint8 or float) -> the fused packed
-    stream buffer of the tiles at `offsets`, sliced on the device, so that
-    the image crosses to the device once, not once per tile group."""
-    key = ("enc", rc, rm, offsets, th, tw)
-    cache = _tile_fns(codec)
-    if key not in cache:
-        if codec._device_tables is None:
-            raise ValueError(
-                "compress_tiled_device needs a Huffman table the device "
-                "packer takes (codes <= 32 bits); use compress_tiled() or "
-                "compress_tiled_many() for this codec")
+@torch.no_grad()
+def _decode_stitch(codec: CGICCodec, canvas: torch.Tensor, buf: torch.Tensor,
+                   mode: int, offsets: tuple, th: int, tw: int,
+                   out_uint8: bool) -> torch.Tensor:
+    """The decode + stitch program: (canvas [H, W, 3] on the device, compact
+    receiver buffer) -> the canvas with the decoded tiles written at
+    `offsets`, so that the reconstruction crosses to the host once per
+    image. The upload is the compact uint16 + bitmap buffer
+    (CGICCodec.split_compact_buf).
 
-        @torch.no_grad()
-        def fn(image):
-            tiles = torch.stack([image[y:y + th, x:x + tw]
-                                 for y, x in offsets])
-            return codec._encode_pack_fn(codec._input_from_device(tiles),
-                                         rc, rm, per_sample=True)
+    JAX donates the canvas to its program. A captured graph bakes in the
+    address of every buffer it writes, so the canvas is a static input
+    here: a replay copies the caller's canvas in and returns a clone of the
+    stitched one (two copies of the canvas a tile group, against one copy
+    of each tile were the stitch outside the graph), and the stitch stays
+    inside the program, one program a tile group as in JAX. Eagerly the
+    canvas is written in place and returned."""
+    hl, wl = th // 4, tw // 4
 
-        cache[key] = fn
-    return cache[key]
+    def fn(canvas, buf):
+        rec = codec._decode_fused_fn(buf, mode, hl, wl, out_uint8)
+        for j, (y, x) in enumerate(offsets):
+            canvas[y:y + th, x:x + tw] = rec[j]
+        return canvas
 
-
-def _decode_stitch_fn(codec: CGICCodec, mode: int, offsets: tuple, th: int,
-                      tw: int, out_uint8: bool):
-    """(canvas [H, W, 3] on the device, compact receiver buffer) -> the
-    canvas with the decoded tiles written at `offsets` in place, so that the
-    reconstruction crosses to the host once per image. The upload is the
-    compact uint16 + bitmap buffer (CGICCodec.split_compact_buf)."""
-    key = ("dec", mode, offsets, th, tw, out_uint8)
-    cache = _tile_fns(codec)
-    if key not in cache:
-        hl, wl = th // 4, tw // 4
-
-        @torch.no_grad()
-        def fn(canvas, buf):
-            rec = codec._decode_fused_fn(buf, mode, hl, wl, out_uint8)
-            for j, (y, x) in enumerate(offsets):
-                canvas[y:y + th, x:x + tw] = rec[j]
-            return canvas
-
-        cache[key] = fn
-    return cache[key]
+    return codec._programs.run(codec._tile_fns,
+                               ("dec", mode, offsets, th, tw, out_uint8), fn,
+                               canvas, buf)
 
 
 def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
@@ -270,8 +268,8 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
         bufs = []
         for (th, tw), tyx in groups.items():
             offs = tuple((y, x) for _, y, x in tyx)
-            fn = _encode_tiles_fn(codec, rc, rm, offs, th, tw)
-            bufs.append(((th, tw), tyx, offs, _Fetch(fn(img_dev))))
+            bufs.append(((th, tw), tyx, offs, _Fetch(_encode_tiles(
+                codec, img_dev, rc, rm, offs, th, tw))))
         _tr(f"A{i} dispatched")
         stats["a_upload_s"] += time.perf_counter() - t0
         stats["a_upload_bytes"] += images[i].nbytes
@@ -307,9 +305,10 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
             inds = [codec._rebuild(e)[0] for e in encs]
             dec_in = codec._compact_decode_input(encs, inds)
             stats["b_rebuild_s"] += time.perf_counter() - t0
-            fn = _decode_stitch_fn(codec, mode, offs, th, tw, out_uint8)
             t0 = time.perf_counter()
-            canvas = fn(canvas, codec._upload(dec_in.view(np.int16)))
+            canvas = _decode_stitch(codec, canvas,
+                                    codec._upload(dec_in.view(np.int16)),
+                                    mode, offs, th, tw, out_uint8)
             stats["b_h2d_dispatch_s"] += time.perf_counter() - t0
             stats["b_h2d_bytes"] += dec_in.nbytes
         _tr(f"B{i} decode dispatched")

@@ -27,6 +27,7 @@ import control_gic_tpu_torch.coding.native_lib
 import control_gic_tpu_torch.coding.huffman_device
 import control_gic_tpu_torch.coding.stream_pack
 import control_gic_tpu_torch.coding.huffman_decode_device
+import control_gic_tpu_torch.utils.programs, control_gic_tpu_torch.utils.metrics
 import chip_smoke
 """
 CHECK = """

@@ -754,3 +754,60 @@ def test_moment_wrapper_counts_one_launch_a_call(cuda):
     assert FN.KERNEL_LAUNCHES == {
         "gn_moments": before["gn_moments"] + 4,
         "spatial_norm_apply": before["spatial_norm_apply"] + 1}
+
+
+# ---------------------------------------- the codec's programs as CUDA graphs
+
+@pytest.fixture(scope="module")
+def graph_codecs():
+    """The full-width bf16 codec (random weights from seed 0) with its
+    programs captured as CUDA graphs, and the same model eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; CUDA graphs have no CPU mode")
+    import numpy as np
+
+    from control_gic_tpu_torch.cli.common import build_codec
+    from control_gic_tpu_torch.codec import CGICCodec
+    graph = build_codec(device="cuda", seed=0)
+    eager = CGICCodec(graph.model, np.ones(graph.model.config.n_embed,
+                                           np.int64), graphs=False)
+    assert graph._programs.backend is not None
+    assert eager._programs.backend is None
+    return graph, eager
+
+
+def _all_launches():
+    return {**A.KERNEL_LAUNCHES, **NC.KERNEL_LAUNCHES, **FN.KERNEL_LAUNCHES}
+
+
+@pytest.mark.parametrize("ratios", [(0.1, 0.4), (1.0, 0.0)])
+def test_captured_programs_match_eager(graph_codecs, ratios):
+    """256x256 through encode + pack and decode, three images: the first
+    captures, the others replay. The same streams, reconstructions within
+    1e-3 and the same launch counts as the eager codec, and each replay's
+    output a tensor of its own."""
+    import numpy as np
+    graph, eager = graph_codecs
+    imgs = np.random.default_rng(41).uniform(0, 1, (3, 1, 256, 256, 3))
+
+    def run(codec):
+        before, captured = _all_launches(), codec._programs.captured
+        out = []
+        for img in imgs:
+            encs = codec.encode_finish(codec.encode_batch_async(
+                img, *ratios, device_pack=True))
+            out.append((encs, codec.decode_batch_async(encs)))
+        torch.cuda.synchronize()
+        after = _all_launches()
+        return (out, {k: after[k] - before[k] for k in after},
+                codec._programs.captured - captured)
+
+    g_out, g_launches, g_captured = run(graph)
+    e_out, e_launches, _ = run(eager)
+    assert g_captured == 2                      # encode + pack, decode
+    assert g_launches == e_launches and sum(g_launches.values()) > 0
+    for (g_encs, g_rec), (e_encs, e_rec) in zip(g_out, e_out):
+        assert [e.streams for e in g_encs] == [e.streams for e in e_encs]
+        assert (g_rec.float() - e_rec.float()).abs().max().item() <= 1e-3
+    assert g_out[1][1].data_ptr() != g_out[2][1].data_ptr()
+    assert not torch.equal(g_out[1][1], g_out[2][1])
