@@ -70,7 +70,19 @@ Phases, each printing a line of its own:
      entropy seconds per Kodak image with the C++ coder and the pure-Python
      coders (the phase fails unless the C++ coder is loaded). Both pipelines
      also run with graphs=False: the same streams, reconstructions within
-     1e-3 and launches as with CUDA graphs, each profiled.
+     1e-3 and launches as with CUDA graphs, each profiled;
+ 13. the device-unpack receiver (CUDA graphs on), on the default codec
+     (uniform counts: every code 10 bits) and a codec of the same model with
+     skewed counts (codes up to 18 bits): the scan kernel against its plain
+     loop on the card, the rank decoder and the host coder on two Kodak
+     fine streams (symbols equal; ms of each); decode_batch(device_unpack=
+     True) under CONTROL_GIC_UNPACK_IMPL=scan and =rank against the host
+     receiver on a 256x256 batch of 4 in all 7 modes and a Kodak batch of 2
+     (uint8 equal, floats within 1e-6, one scan launch per Huffman stream;
+     ms per image and upload bytes both ways); roundtrip_pipelined and
+     compress_tiled_device (one 1344x2032 image, the default codec) with
+     device_unpack=True against False, uint8 equal, under both decoders;
+     strict=True raising on a table with codes above 20 bits.
 Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
 and dq backward), the SpatialNorm apply and the per-call norm+conv, and the
 gradients of the chain, the per-call op, the switched SpatialNorm and the
@@ -129,6 +141,12 @@ KERNELS = {
         "route": "cuda",
         "source": "control_gic_tpu_torch/kernels/norm_conv_chain.cu",
         "replaces": "control_gic_tpu/ops/norm_conv.py:79",
+    },
+    # the counterpart of a lax.scan, not of a Pallas kernel
+    "huffman_scan": {
+        "route": "cuda",
+        "source": "control_gic_tpu_torch/kernels/huffman_scan.cu",
+        "replaces": "control_gic_tpu/coding/huffman_decode_tpu.py:151",
     },
 }
 # shapes the main paths give the attention kernel: (B, Tq, Tk, C, dtype);
@@ -283,10 +301,12 @@ def switches(**env):
 
 
 def _counters():
+    from control_gic_tpu_torch.coding import huffman_decode_device as D
     from control_gic_tpu_torch.ops import attention as A
     from control_gic_tpu_torch.ops import fused_norm as FN
     from control_gic_tpu_torch.ops import norm_conv as NC
-    return A.KERNEL_LAUNCHES, NC.KERNEL_LAUNCHES, FN.KERNEL_LAUNCHES
+    return (A.KERNEL_LAUNCHES, NC.KERNEL_LAUNCHES, FN.KERNEL_LAUNCHES,
+            D.KERNEL_LAUNCHES)
 
 
 # the port's counter names -> the names of the kernels line
@@ -302,9 +322,9 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    flash, chain, moments = _counters()
+    flash, chain, moments, scan = _counters()
     return {**{_FLASH_NAMES[k]: v for k, v in flash.items()}, **chain,
-            **moments}
+            **moments, **scan}
 
 
 def phase_device() -> dict:
@@ -970,7 +990,8 @@ IMAGE = (256, 256)
 KODAK = (512, 768)
 COUNTERS = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dkdv",
             "flash_attn_bwd_dq", "chain_gn", "chain_sn", "norm_conv_gn",
-            "norm_conv_sn", "gn_moments", "spatial_norm_apply")
+            "norm_conv_sn", "gn_moments", "spatial_norm_apply",
+            "huffman_scan")
 
 
 def launches_of(**counts) -> dict:
@@ -1799,6 +1820,294 @@ def phase_entropy_pipeline(dev: dict, codec, eager) -> None:
         speedup_decode=t["python_decode_s"] / t["native_decode_s"])
 
 
+# phase 13: the device-unpack receiver. The skewed counts give the second
+# codec codes of 7 to 18 bits (L = 18: the scan kernel reads its table
+# through L1 / L2); the default codec's uniform counts give every code 10
+# bits (the table in shared memory). Geometric counts give codes above the
+# decode table's 20 bits.
+UNPACK_SKEW, UNPACK_SEED = 20.0, 0
+UNPACK_IMPLS = ("scan", "rank")
+UNPACK_IMAGES = 4                                # the 256x256 batch
+
+
+def skewed_counts(n: int, skew: float, seed: int):
+    """Poisson counts around 100 whose means spread over skew^[-1, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return np.maximum(rng.poisson(100 * skew ** rng.uniform(-1, 1, n), n), 1)
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Host ms of fn() through a final synchronize: the median of `reps`
+    runs after a warm one."""
+    import statistics
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(runs)
+
+
+def scan_rows(dev: dict, codecs, encs_kodak, peaks) -> list:
+    """13.1: on each codec's two Kodak fine streams (S = 2, n_cap = 24576,
+    mode 0, so the counts are ragged), the scan kernel against its plain
+    loop on the card, the rank decoder and the host coder: symbols equal.
+    Times: the kernel and the rank decoder by CUDA events over many calls,
+    the plain loop (some 300k launches) over one."""
+    import numpy as np
+    import torch
+
+    from control_gic_tpu_torch.coding import huffman_decode_device as D
+
+    rows = []
+    for label, c in codecs:
+        encs = encs_kodak[label]
+        lut_sym, lut_len, L = c._decode_tables
+        hl, wl = encs[0].latent_hw
+        n_cap = hl * wl
+        cw = n_cap * L // 32 + 2
+        frames = [e.streams["indices_fine"] for e in encs]
+        words = np.stack([D.words_from_frame(f, cw)[0] for f in frames])
+        host = [c.huffman.decode_array(f) for f in frames]
+        counts = [len(h) for h in host]
+        args = (torch.from_numpy(words.view(np.int32)).cuda(),
+                torch.tensor(counts, dtype=torch.int32).cuda(),
+                torch.from_numpy(lut_sym).cuda(),
+                torch.from_numpy(lut_len).cuda(), n_cap, L)
+        out = D.huffman_scan_kernel(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        plain = D.huffman_decode_bits_scan_reference(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        rank = D.huffman_decode_bits(*args)
+        torch.cuda.synchronize()
+        err = (out.long() - plain.long()).abs().max().item()
+        rank_equal = torch.equal(rank, out)
+        host_equal = all(np.array_equal(out[i, :n].cpu().numpy(), h)
+                         and not out[i, n:].any().item()
+                         for i, (n, h) in enumerate(zip(counts, host)))
+        ms = cuda_time_ms(lambda: D.huffman_scan_kernel(*args), iters=20)
+        rank_ms = cuda_time_ms(lambda: D.huffman_decode_bits(*args))
+        # bytes: the frames' words, the counts, the table entries a walk can
+        # touch and the output; operations: ~8 integer ops a symbol
+        nbytes = (sum(len(f) for f in frames) + 4 * len(counts)
+                  + 8 * min(1 << L, sum(counts)) + out.numel() * 4)
+        bms, bound_by = bound_ms(8.0 * sum(counts), nbytes, "float32", peaks)
+        row = {"kernel": "huffman_scan", "codec": label, "L": L,
+               "shape": [len(counts), n_cap], "counts": counts,
+               "table_in_shared_memory": L <= 12, "max_abs_err": err,
+               "tol": 0, "rank_equal": rank_equal, "host_equal": host_equal,
+               "ms": ms, "plain_ms": plain_ms, "rank_ms": rank_ms,
+               "ns_per_symbol": 1e6 * ms / max(counts),
+               "library_ms": None, "bound_ms": bms, "bound_by": bound_by,
+               "card": dev["nvidia_smi"]}
+        log("kernel huffman_scan", **row)
+        if err != 0 or not rank_equal or not host_equal:
+            raise AssertionError(f"phase 13 {label}: the decoders disagree "
+                                 f"(kernel vs plain {err}, rank equal "
+                                 f"{rank_equal}, host equal {host_equal})")
+        rows.append(row)
+    return rows
+
+
+def phase_device_unpack(dev: dict, codec) -> dict:
+    """Phase 13: the device-unpack receiver (see the module docstring).
+    Returns the scan kernel's row and its launches on the main path: the
+    default codec's round trips under the scan decoder."""
+    import numpy as np
+    import torch
+
+    from control_gic_tpu_torch.codec import MODE_STREAMS, CGICCodec
+    from control_gic_tpu_torch.parallel.tiling import compress_tiled_device
+
+    t_phase = time.perf_counter()
+    peaks = card_peaks(dev["name"])
+    skew = CGICCodec(codec.model, skewed_counts(
+        codec.model.config.n_embed, UNPACK_SKEW, UNPACK_SEED),
+        device=codec.device)
+    codecs = (("uniform", codec), ("skewed", skew))
+    lens = {label: c._decode_tables[2] for label, c in codecs}
+    log("device unpack codecs", max_code_bits=lens,
+        skewed_counts=dict(skew=UNPACK_SKEW, seed=UNPACK_SEED))
+    if lens["uniform"] != 10 or not 14 <= lens["skewed"] <= 20:
+        raise AssertionError(f"phase 13: code lengths {lens}, expected 10 "
+                             "and 14 to 20")
+
+    # one encode per batch (the default codec's programs), each codec's
+    # streams coded from the same grids by the host coder
+    def bundles(images, ratios):
+        (ind, m_c, m_m, m_f), mode = codec.encode_arrays(
+            images, *ratios, per_sample=True)
+        return {label: [c.streams_from_arrays(ind[i], m_c[i], m_m[i],
+                                              m_f[i], mode,
+                                              images.shape[1:3])
+                        for i in range(len(images))]
+                for label, c in codecs}
+
+    small = np.stack([make_image(200 + j) for j in range(UNPACK_IMAGES)])
+    kodak = np.stack([make_image(100 + j, KODAK) for j in range(2)])
+    batches = [(f"256x256 mode {m}", bundles(small, RATIOS[m]))
+               for m in range(7)]
+    batches.append(("512x768 mode 0", bundles(kodak, RATIOS[0])))
+
+    # 1. the decoders against each other on the Kodak fine streams
+    rows = scan_rows(dev, codecs, batches[-1][1], peaks)
+
+    # 2. round trips: device receiver against the host receiver
+    host = {}
+    for label, c in codecs:
+        host[label] = [(c.decode_batch(b[label], out_uint8=True),
+                        c.decode_batch(b[label])) for _, b in batches]
+    main_launches = None
+    for label, c in codecs:
+        for impl in UNPACK_IMPLS:
+            with switches(CONTROL_GIC_UNPACK_IMPL=impl):
+                torch.cuda.synchronize()
+                reset_launches()
+                per_batch = []
+                for (name, b), (h8, hf) in zip(batches, host[label]):
+                    before = read_launches()
+                    d8 = c.decode_batch(b[label], out_uint8=True,
+                                        device_unpack=True, strict=True)
+                    path = c.last_decode_path
+                    df = c.decode_batch(b[label], device_unpack=True)
+                    after = read_launches()
+                    scans = after["huffman_scan"] - before["huffman_scan"]
+                    mode = b[label][0].mode
+                    want = (2 * sum(s.startswith("indices")
+                                    for s in MODE_STREAMS[mode])
+                            if impl == "scan" else 0)
+                    diff = float(np.abs(df - hf).max())
+                    per_batch.append({"batch": name, "uint8_equal":
+                                      bool(np.array_equal(d8, h8)),
+                                      "float_max_abs_diff": diff,
+                                      "path": path, "scan_launches": scans})
+                    if (not np.array_equal(d8, h8) or not diff <= 1e-6
+                            or path != "device" or scans != want):
+                        raise AssertionError(
+                            f"phase 13 {label} {impl} {name}: device "
+                            f"receiver uint8 equal "
+                            f"{np.array_equal(d8, h8)}, float diff {diff}, "
+                            f"path {path}, scan launches {scans} (want "
+                            f"{want})")
+                torch.cuda.synchronize()
+                launches = read_launches()
+                if label == "uniform" and impl == "scan":
+                    main_launches = launches
+                encs = batches[-1][1][label]
+                st_d, st_h = {}, {}
+                c.decode_batch_device_async(encs, stats=st_d)
+                c.decode_batch_async(encs, stats=st_h)
+                torch.cuda.synchronize()
+                log(f"device unpack {label} {impl}", batches=per_batch,
+                    launches=launches,
+                    kodak_ms_per_image_device=median_ms(
+                        lambda: c.decode_batch(
+                            encs, device_unpack=True)) / len(encs),
+                    kodak_ms_per_image_host=median_ms(
+                        lambda: c.decode_batch(encs)) / len(encs),
+                    small_ms_per_image_device=median_ms(
+                        lambda: c.decode_batch(batches[0][1][label],
+                                               device_unpack=True))
+                    / UNPACK_IMAGES,
+                    small_ms_per_image_host=median_ms(
+                        lambda: c.decode_batch(batches[0][1][label]))
+                    / UNPACK_IMAGES,
+                    kodak_h2d_bytes_per_image_device=st_d["b_h2d_bytes"]
+                    / len(encs),
+                    kodak_h2d_bytes_per_image_host=st_h["b_h2d_bytes"]
+                    / len(encs),
+                    kodak_stream_bytes_per_image=sum(
+                        e.num_bytes for e in encs) / len(encs),
+                    programs=c._programs.stats(), card=dev["nvidia_smi"])
+    if not main_launches["huffman_scan"]:
+        raise AssertionError("phase 13: the scan kernel never launched")
+
+    # 3. the pipelines, uint8 out: device receiver against host receiver
+    pipe = [np.stack([make_image(100 + PIPE_BATCH * b + j, KODAK)
+                      for j in range(PIPE_BATCH)])
+            for b in range(PIPE_BATCHES)]
+    h, w = HIGHRES
+    ch, cw = h // 16 * 16, w // 16 * 16
+    tiled_img = [(make_image(600, (-(-h // 32) * 32, -(-w // 32) * 32))
+                  [:ch, :cw] * 255).astype(np.uint8)]
+    for impl in UNPACK_IMPLS:
+        with switches(CONTROL_GIC_UNPACK_IMPL=impl):
+            res, ms = {}, {}
+            for unpack in (False, True):
+                run = lambda: codec.roundtrip_pipelined(
+                    pipe, *RATIOS[0], device_pack=True, out_uint8=True,
+                    device_unpack=unpack, threads=True)
+                res[unpack] = run()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                ms[unpack] = 1e3 * (time.perf_counter() - t0) / (
+                    PIPE_BATCHES * PIPE_BATCH)
+                if codec.last_pipeline_stats["device_unpack"] != unpack:
+                    raise AssertionError("phase 13: roundtrip_pipelined's "
+                                         "device_unpack stat")
+            (recs_h, encs_h), (recs_d, encs_d) = res[False], res[True]
+            same = (_streams(encs_h) == _streams(encs_d)
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(recs_h, recs_d)))
+            tiled, tms = {}, {}
+            for unpack in (False, True):
+                run = lambda: compress_tiled_device(
+                    codec, tiled_img, *RATIOS[0], tile=TILE, threads=True,
+                    device_unpack=unpack)
+                tiled[unpack] = run()[0]
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                tms[unpack] = 1e3 * (time.perf_counter() - t0)
+            t_same = (np.array_equal(tiled[False][0], tiled[True][0])
+                      and tiled[False][1] == tiled[True][1])
+            log(f"device unpack pipelines {impl}", pipelined_equal=same,
+                pipelined_ms_per_image_device=ms[True],
+                pipelined_ms_per_image_host=ms[False],
+                tiled_equal=t_same, tiled_ms_per_image_device=tms[True],
+                tiled_ms_per_image_host=tms[False], card=dev["nvidia_smi"])
+            if not same or not t_same:
+                raise AssertionError(f"phase 13 {impl}: the device receiver "
+                                     f"differs in the pipelines (pipelined "
+                                     f"{same}, tiled {t_same})")
+
+    # 4. strict=True on a table with codes above 20 bits
+    deep = CGICCodec(codec.model, np.maximum(
+        1, 2 ** 40 >> np.arange(codec.model.config.n_embed)),
+        device=codec.device, graphs=False)
+    deep_bits = max(len(code) for code in deep.huffman.codes.values())
+    encs = deep.encode_batch(small[:1], *RATIOS[0])
+    try:
+        deep.decode_batch(encs, device_unpack=True, strict=True)
+        raised = False
+    except ValueError:
+        raised = True
+    fallback = deep.decode_batch(encs, device_unpack=True)
+    fell_back = (deep.last_decode_path == "host"
+                 and np.array_equal(fallback, deep.decode_batch(encs)))
+    log("device unpack strict", max_code_bits=deep_bits, strict_raised=raised,
+        fallback_path=deep.last_decode_path, fallback_equal=fell_back,
+        seconds=time.perf_counter() - t_phase)
+    if deep_bits <= 20 or not raised or not fell_back:
+        raise AssertionError(f"phase 13: strict mode (max code {deep_bits} "
+                             f"bits, raised {raised}, fallback {fell_back})")
+    row = next(r for r in rows if r["codec"] == "uniform")
+    return {"row": dict(row, max_abs_err=max(r["max_abs_err"] for r in rows)),
+            "launches": main_launches["huffman_scan"]}
+
+
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
 
@@ -2103,6 +2412,7 @@ def main() -> None:
             phase_profile(dev, codec, images[:2], "256x256 fused_norm1")
         tiled = phase_tiled(dev, codec, workdir, eager)
     phase_entropy_pipeline(dev, codec, eager)
+    unpack = phase_device_unpack(dev, codec)
     log("programs", **codec._programs.stats(), card=dev["nvidia_smi"])
     phase_f32_parity(make_image(0))
     phase_kodak_f32(codec, kodak[0])
@@ -2114,7 +2424,8 @@ def main() -> None:
     # each kernel's row at its main path's shape, and its launches there:
     # the inference kernels on the Kodak round trip, the training kernels
     # in the 3 f32 training steps, the apply kernel and the per-call op on
-    # the tiled codec under their switches
+    # the tiled codec under their switches, the scan kernel (on the Kodak
+    # fine streams) in phase 13's round trips of the default codec
     train_row = lambda name: next(r for r in rows if r["kernel"] == name
                                   and r["shape"] == [2, 4096, 4096, 512]
                                   and r["dtype"] == "float32")
@@ -2129,6 +2440,7 @@ def main() -> None:
         "spatial_norm_apply": next(r for r in rows
                                    if r["kernel"] == "spatial_norm_apply"),
         "norm_conv": next(r for r in rows if r["kernel"] == "norm_conv"),
+        "huffman_scan": unpack["row"],
     }
     nc = tiled["chain0_norm_conv1"]
     main_launches = {"flash_attn_fwd": launches["flash_attn_fwd"],
@@ -2139,7 +2451,8 @@ def main() -> None:
                      "gn_moments": launches["gn_moments"],
                      "spatial_norm_apply":
                          tiled["fused_norm1"]["spatial_norm_apply"],
-                     "norm_conv": nc["norm_conv_gn"] + nc["norm_conv_sn"]}
+                     "norm_conv": nc["norm_conv_gn"] + nc["norm_conv_sn"],
+                     "huffman_scan": unpack["launches"]}
     kernels = [dict(name=name, **KERNELS[name],
                     launches=main_launches[name],
                     max_abs_err=main_rows[name]["max_abs_err"],

@@ -11,6 +11,9 @@
             -> upload ONE compact buffer per batch: the grid as uint16 and
             the mask bitmaps as sent (split_compact_buf)
             -> masks unpacked, decode_indices -> RGB (device)
+            device_unpack=True: ONE flat buffer of the frames' words goes
+            up instead, and the Huffman decode and the grid rebuild run on
+            the device too (make_rebuild_batch)
 
 Streams per compression mode:
   mode 0: indices coarse+medium+fine, masks coarse+medium
@@ -48,7 +51,13 @@ import numpy as np
 import torch
 
 from .coding import BitmapCodec, HuffmanCodec
-from .coding.huffman_decode_device import bitmap_decode_bits, words_from_frame
+from .coding.huffman_decode_device import (bitmap_decode_bits,
+                                           build_decode_lut,
+                                           frame_body_words,
+                                           huffman_decode_bits,
+                                           huffman_decode_bits_scan,
+                                           supports_decode_table,
+                                           words_from_frame)
 from .coding.huffman_device import pack_tables, supports_table
 from .coding.stream_pack import (fuse_packed, fused_layout, fused_to_bytes,
                                  pack_streams_batch)
@@ -174,6 +183,134 @@ def _up4(m: np.ndarray) -> np.ndarray:
     return m.repeat(4, axis=-2).repeat(4, axis=-1)
 
 
+def _up2_t(g: torch.Tensor) -> torch.Tensor:
+    return g.repeat_interleave(2, -2).repeat_interleave(2, -1)
+
+
+def _up4_t(g: torch.Tensor) -> torch.Tensor:
+    return g.repeat_interleave(4, -2).repeat_interleave(4, -1)
+
+
+def unpack_caps(L: int, mode: int, hl: int, wl: int):
+    """The device-unpack receiver's static layout of a mode's streams:
+    [(name, symbols, word capacity, is_bitmap)]. A capacity bounds the
+    block each stream reads from the flat upload and keeps one guard word
+    past its last peek (L: the decode table's longest code)."""
+    nc, nm, nf = (hl // 4) * (wl // 4), (hl // 2) * (wl // 2), hl * wl
+    sizes = {
+        "indices_coarse": (nc, nc * L // 32 + 2, False),
+        "indices_medium": (nm, nm * L // 32 + 2, False),
+        "indices_fine": (nf, nf * L // 32 + 2, False),
+        "mask_coarse": (nc, nc // 32 + 2, True),
+        "mask_medium": (nm, nm // 32 + 2, True),
+    }
+    return [(name,) + sizes[name] for name in MODE_STREAMS[mode]]
+
+
+def unpack_impl() -> str:
+    """The device receiver's Huffman decoder, CONTROL_GIC_UNPACK_IMPL (read
+    at call time): 'scan' (the default, as in JAX), the lock-step walk, on
+    CUDA the scan kernel; 'rank', the list-ranking decoder in tensor ops."""
+    impl = os.environ.get("CONTROL_GIC_UNPACK_IMPL", "scan")
+    if impl not in ("scan", "rank"):
+        raise ValueError(f"CONTROL_GIC_UNPACK_IMPL must be 'scan' or "
+                         f"'rank', got {impl!r}")
+    return impl
+
+
+def _receiver_masks(mode: int, m_c: Optional[torch.Tensor],
+                    m_m: Optional[torch.Tensor], b: int, hl: int, wl: int,
+                    dev: torch.device):
+    """The decoder's mask triple (m_c, m_m, m_f), int32 [B, h, w], from the
+    masks the mode sends (None where it sends none), as the host _rebuild
+    derives them: the fine mask is the complement; all-one or all-zero
+    masks in the one-grain modes."""
+    zeros = lambda h, w: torch.zeros((b, h, w), dtype=torch.int32,
+                                     device=dev)
+    ones = lambda h, w: torch.ones((b, h, w), dtype=torch.int32, device=dev)
+    hc, wc, hm, wm = hl // 4, wl // 4, hl // 2, wl // 2
+    if mode == 0:
+        m_f = 1 - _up2_t(m_m) - _up4_t(m_c)
+    elif mode == 1:
+        m_c, m_f = zeros(hc, wc), 1 - _up2_t(m_m)
+    elif mode == 2:
+        m_m, m_f = zeros(hm, wm), 1 - _up4_t(m_c)
+    elif mode == 3:
+        m_m, m_f = 1 - _up2_t(m_c), zeros(hl, wl)
+    elif mode == 4:
+        m_c, m_m, m_f = ones(hc, wc), zeros(hm, wm), zeros(hl, wl)
+    elif mode == 5:
+        m_c, m_m, m_f = zeros(hc, wc), ones(hm, wm), zeros(hl, wl)
+    else:
+        m_c, m_m, m_f = zeros(hc, wc), zeros(hm, wm), ones(hl, wl)
+    return m_c, m_m, m_f
+
+
+# each index stream: its mask in the triple, and its grid's upsampling
+_GRAINS = {"indices_coarse": (0, _up4_t), "indices_medium": (1, _up2_t),
+           "indices_fine": (2, lambda g: g)}
+
+
+def make_rebuild_batch(L: int, mode: int, hl: int, wl: int,
+                       impl: Optional[str] = None):
+    """The batched device receiver: (flat words [N] int32, word offsets
+    [B, S], lut_sym, lut_len) -> (index grids [B, hl, wl] int64, m_c, m_m,
+    m_f int32), all on the device, as the host's _rebuild computes them:
+    each stream's block cut from the flat upload, the mask bitmaps
+    unpacked and the absent masks derived (_receiver_masks), each Huffman
+    stream decoded (impl: see unpack_impl) with its mask's count, its
+    front-packed symbols scattered to their mask positions (an all-one
+    mask in the one-grain modes) and the grids interleaved. Shared by
+    decode_batch(device_unpack=True) and the tiled decode + stitch."""
+    impl = impl or unpack_impl()
+    caps = unpack_caps(L, mode, hl, wl)
+
+    def scatter_syms(mask_grid, syms):
+        """Front-packed symbols [B, n] -> their positions in mask_grid
+        [B, h, w] (the inverse of stream_pack.compact_masked), by the
+        row-major rank of each set position."""
+        b = mask_grid.shape[0]
+        flat = mask_grid.reshape(b, -1)
+        rank = torch.clamp(torch.cumsum(flat, -1) - 1, 0, syms.shape[-1] - 1)
+        return torch.where(flat == 1, syms.gather(-1, rank),
+                           0).reshape(mask_grid.shape)
+
+    def rebuild_batch(flat, offs, lut_s, lut_l):
+        b, dev = offs.shape[0], flat.device
+        blocks = {}
+        for s, (name, _, cw, _) in enumerate(caps):
+            # dynamic_slice's start: clamped so the block lies in the buffer
+            start = torch.clamp(offs[:, s].to(torch.int64), 0,
+                                flat.shape[0] - cw)
+            blocks[name] = flat[start[:, None]
+                                + torch.arange(cw, device=dev)]  # [B, cw]
+        def sent(name, h, w):
+            """A mask the mode sends, unpacked; None where it sends none."""
+            if name not in blocks:
+                return None
+            return bitmap_decode_bits(blocks[name], h * w).reshape(b, h, w)
+
+        masks = _receiver_masks(mode, sent("mask_coarse", hl // 4, wl // 4),
+                                sent("mask_medium", hl // 2, wl // 2), b, hl,
+                                wl, dev)
+        ind = torch.zeros((b, hl, wl), dtype=torch.int64, device=dev)
+        for name, n, _, is_bitmap in caps:
+            if is_bitmap:
+                continue
+            k, up = _GRAINS[name]
+            counts = masks[k].sum((1, 2), dtype=torch.int32)
+            if impl == "scan":
+                syms = huffman_decode_bits_scan(blocks[name], counts, lut_s,
+                                                lut_l, n, L)
+            else:
+                syms = huffman_decode_bits(blocks[name], counts, lut_s,
+                                           lut_l, n, L)
+            ind = ind + up(scatter_syms(masks[k], syms))
+        return (ind, *masks)
+
+    return rebuild_batch
+
+
 class CGICCodec:
     """Binds a CGIC model on `device` to the entropy coders. The model is
     moved to `device`; CUDA is the default and is never replaced by the CPU
@@ -206,11 +343,17 @@ class CGICCodec:
                                if supports_table(self.huffman.codes)
                                else None)
         self._device_tables_dev = None   # the same as int64 device tensors
+        # the device-unpack receiver's decode table (code lengths in
+        # [1, MAX_LUT_BITS]); without it decode_batch(device_unpack=True)
+        # takes the host receiver
+        self._decode_tables = (build_decode_lut(self.huffman.codes)
+                               if supports_decode_table(self.huffman.codes)
+                               else None)
+        self._decode_tables_dev = None   # the same on the device, int32
         # per-stage seconds and bytes of the last roundtrip_pipelined or
         # compress_tiled_device run
         self.last_pipeline_stats: Dict[str, float] = {}
-        # the receiver the last decode_batch used: always 'host' here (the
-        # device-unpack receiver is not ported yet)
+        # the receiver the last decode_batch used: 'device' or 'host'
         self.last_decode_path: Optional[str] = None
         self._programs = Programs(
             self.model, CUDAGraphs(self.device)
@@ -490,13 +633,6 @@ class CGICCodec:
             words = seg.view(torch.int32).reshape(b, nw)
             return bitmap_decode_bits(words, h * w).reshape(b, h, w)
 
-        up2 = lambda g: g.repeat_interleave(2, -2).repeat_interleave(2, -1)
-        up4 = lambda g: g.repeat_interleave(4, -2).repeat_interleave(4, -1)
-        zeros = lambda h, w: torch.zeros((b, h, w), dtype=torch.int32,
-                                         device=dev)
-        ones = lambda h, w: torch.ones((b, h, w), dtype=torch.int32,
-                                       device=dev)
-
         m_c = m_m = None
         if "mask_coarse" in present:
             m_c = mask_at(pos, wcw, hc, wc)
@@ -504,24 +640,7 @@ class CGICCodec:
         if "mask_medium" in present:
             m_m = mask_at(pos, wmw, hm, wm)
             pos += 2 * wmw
-        if mode == 0:
-            m_f = 1 - up2(m_m) - up4(m_c)
-        elif mode == 1:
-            m_f = 1 - up2(m_m)
-            m_c = zeros(hc, wc)
-        elif mode == 2:
-            m_f = 1 - up4(m_c)
-            m_m = zeros(hm, wm)
-        elif mode == 3:
-            m_m = 1 - up2(m_c)
-            m_f = zeros(hl, wl)
-        elif mode == 4:
-            m_c, m_m, m_f = ones(hc, wc), zeros(hm, wm), zeros(hl, wl)
-        elif mode == 5:
-            m_m, m_c, m_f = ones(hm, wm), zeros(hc, wc), zeros(hl, wl)
-        else:
-            m_f, m_c, m_m = ones(hl, wl), zeros(hc, wc), zeros(hm, wm)
-        return ind, (m_c, m_m, m_f)
+        return ind, _receiver_masks(mode, m_c, m_m, b, hl, wl, dev)
 
     def _compact_decode_input(self, encoded: List[EncodedImage],
                               inds) -> np.ndarray:
@@ -558,22 +677,131 @@ class CGICCodec:
         uint8 with out_uint8, quantized as cli.common.save_png does (f32,
         clip, * 255, truncate), which cuts the fetch 4x."""
         ind, masks = self.split_compact_buf(buf, mode, hl, wl)
+        return self._reconstruct(ind, masks, out_uint8)
+
+    def _reconstruct(self, ind: torch.Tensor, masks,
+                     out_uint8: bool) -> torch.Tensor:
+        """decode_indices -> [B, H, W, 3] float32, or uint8 quantized as
+        cli.common.save_png does (f32, clip, * 255, truncate)."""
         rec = self.model.decode_indices(ind, masks).float()
         if out_uint8:
             rec = (rec.clamp(0.0, 1.0) * 255).to(torch.uint8)
         return rec.permute(0, 2, 3, 1).contiguous()
 
+    # ------------------------------------------- device-unpack receiver path
+
+    def _unpack_caps(self, mode: int, hl: int, wl: int):
+        return unpack_caps(self._decode_tables[2], mode, hl, wl)
+
+    def _decode_luts_on_device(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode table on the device, uploaded once per codec (2^L
+        entries: re-uploading it each batch would cost the wire)."""
+        if self._decode_tables_dev is None:
+            lut_sym, lut_len, _ = self._decode_tables
+            self._decode_tables_dev = (
+                torch.from_numpy(lut_sym).to(self.device),
+                torch.from_numpy(lut_len).to(self.device))
+        return self._decode_tables_dev
+
+    def _decode_unpack(self, flat: torch.Tensor, offs: torch.Tensor,
+                       mode: int, hl: int, wl: int,
+                       out_uint8: bool) -> torch.Tensor:
+        """The device-unpack decode program (JAX `_decode_unpack_fn`, under
+        its key): the flat stream words and the offset table -> the
+        reconstruction. The decode table is a constant of the program."""
+        impl = unpack_impl()
+        luts = self._decode_luts_on_device()
+        return self._programs.run(
+            self._decode_fns, ("unpack", mode, hl, wl, out_uint8, impl),
+            lambda f, o: self._decode_unpack_fn(f, o, luts, mode, hl, wl,
+                                                out_uint8, impl),
+            flat, offs)
+
+    def _decode_unpack_fn(self, flat: torch.Tensor, offs: torch.Tensor,
+                          luts, mode: int, hl: int, wl: int,
+                          out_uint8: bool, impl: str) -> torch.Tensor:
+        """The whole receiver on the device from ONE flat buffer of every
+        image's stream words (the compressed payload) and a per-(image,
+        stream) word-offset table: Huffman decode, mask unpack, grid
+        rebuild (make_rebuild_batch), then decode_indices. The upload is
+        the compressed size, not the grids'."""
+        rebuild = make_rebuild_batch(self._decode_tables[2], mode, hl, wl,
+                                     impl)
+        ind, m_c, m_m, m_f = rebuild(flat, offs, *luts)
+        return self._reconstruct(ind, (m_c, m_m, m_f), out_uint8)
+
+    def _flat_stream_upload(self, encoded: List[EncodedImage]
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host half of the device-unpack upload: every bundle's frame words
+        (pad headers stripped, MSB-first uint32) in one flat buffer, a guard
+        of the largest capacity + 1 zero words, padded to a quarter-octave
+        size bucket (at least 1024 words), and the [N, streams] int32 word
+        offsets; byte for byte JAX's. The buffer's length follows the
+        compressed size, so the buckets cap the programs captured for it at
+        about four an octave, for at most 25% padding."""
+        mode = encoded[0].mode
+        caps = self._unpack_caps(mode, *encoded[0].latent_hw)
+        offs = np.zeros((len(encoded), len(caps)), np.int32)
+        blocks = []
+        pos = 0
+        for i, e in enumerate(encoded):
+            for s, (name, _, cw, _) in enumerate(caps):
+                words, _ = frame_body_words(e.streams[name])
+                if words.size > cw:
+                    raise ValueError(f"stream '{name}' holds {words.size} "
+                                     f"words, more than its capacity {cw}")
+                offs[i, s] = pos
+                blocks.append(words)
+                pos += words.size
+        guard = max(cw for _, _, cw, _ in caps) + 1
+        blocks.append(np.zeros(guard, np.uint32))
+        flat = np.concatenate(blocks)
+        n = max(int(flat.size), 1024)
+        octave = 1 << (n.bit_length() - 1)
+        step = max(octave // 4, 256)
+        bucket = ((n + step - 1) // step) * step
+        out = np.zeros(bucket, np.uint32)
+        out[:flat.size] = flat
+        return out, offs
+
+    def _unpack_engaged(self, device_unpack: bool,
+                        strict: bool = False) -> bool:
+        """Whether the device receiver runs: asked for, and the table is
+        device-decodable; else the host receiver, or with strict=True a
+        ValueError."""
+        engaged = device_unpack and self._decode_tables is not None
+        if device_unpack and not engaged and strict:
+            raise ValueError(
+                "device_unpack requested with strict=True but this codec's "
+                "Huffman table is not device-decodable (code lengths "
+                "outside [1, MAX_LUT_BITS])")
+        return engaged
+
     def decode_batch(self, encoded: List[EncodedImage], *,
-                     out_uint8: bool = False,
+                     out_uint8: bool = False, device_unpack: bool = False,
+                     strict: bool = False,
                      stats: Optional[dict] = None) -> np.ndarray:
         """Same-mode, same-shape bundles -> [N, H, W, 3] float32 (uint8 with
-        out_uint8). `stats` accumulates the host rebuild ('rebuild_s') and
-        the upload, device decode and download ('decode_s')."""
+        out_uint8).
+
+        device_unpack=True runs the whole receiver on the device (Huffman
+        decode and grid rebuild, decode_batch_device_async): the upload is
+        the compressed streams, not the rebuilt grids. Pixel-identical to
+        the host receiver. It needs a device-decodable table and takes the
+        host receiver otherwise, or raises with strict=True. Only the host
+        receiver validates streams (CorruptStreamError). After the call
+        self.last_decode_path says which receiver ran ('device' or 'host').
+        `stats` accumulates the host half ('rebuild_s': the host rebuild, or
+        the flat upload's framing) and the upload, device decode and
+        download ('decode_s')."""
+        engaged = self._unpack_engaged(device_unpack, strict)
+        self.last_decode_path = "device" if engaged else "host"
+        dispatch = (self.decode_batch_device_async if engaged
+                    else self.decode_batch_async)
         t0 = time.perf_counter()
         st: Dict[str, float] = {}
-        out = _Fetch(self.decode_batch_async(
-            encoded, out_uint8=out_uint8, stats=st)).arrays()[0]
-        self.last_decode_path = "host"
+        out = _Fetch(dispatch(encoded, out_uint8=out_uint8,
+                              stats=st)).arrays()[0]
         _acc(stats, "rebuild_s", st["b_rebuild_s"])
         _acc(stats, "decode_s",
              time.perf_counter() - t0 - st["b_rebuild_s"])
@@ -632,6 +860,17 @@ class CGICCodec:
         _acc(stats, "b_fetch_bytes", sum(a.nbytes for a in arrays))
         return out
 
+    @staticmethod
+    def _batch_layout(encoded: List[EncodedImage]):
+        """(mode, latent_hw) of a batch; every bundle's masks come from one
+        mode, so a mixed batch raises."""
+        mode, hl_wl = encoded[0].mode, encoded[0].latent_hw
+        if not all(e.mode == mode and e.latent_hw == hl_wl
+                   for e in encoded):
+            raise ValueError("decode_batch needs same-mode, same-shape "
+                             "bundles; split mixed batches first")
+        return mode, hl_wl
+
     @torch.no_grad()
     def decode_batch_async(self, encoded: List[EncodedImage], *,
                            out_uint8: bool = False,
@@ -642,12 +881,7 @@ class CGICCodec:
         entropy decode and the compact buffer), 'b_h2d_dispatch_s' and
         'b_h2d_bytes'."""
         t0 = time.perf_counter()
-        mode, hl_wl = encoded[0].mode, encoded[0].latent_hw
-        # the compact buffer derives every image's masks from one mode
-        if not all(e.mode == mode and e.latent_hw == hl_wl
-                   for e in encoded):
-            raise ValueError("decode_batch needs same-mode, same-shape "
-                             "bundles; split mixed batches first")
+        mode, hl_wl = self._batch_layout(encoded)
         inds = [self._rebuild(e)[0] for e in encoded]
         buf = self._compact_decode_input(encoded, inds)
         t1 = time.perf_counter()
@@ -658,10 +892,37 @@ class CGICCodec:
         _acc(stats, "b_h2d_bytes", buf.nbytes)
         return out
 
+    @torch.no_grad()
+    def decode_batch_device_async(self, encoded: List[EncodedImage], *,
+                                  out_uint8: bool = False,
+                                  stats: Optional[dict] = None
+                                  ) -> torch.Tensor:
+        """The device-unpack receiver (see decode_batch): the flat stream
+        upload and the device decode, dispatched without waiting. Returns
+        the device tensor [N, H, W, 3]. `stats` accumulates 'b_rebuild_s'
+        (the flat buffer's framing), 'b_h2d_dispatch_s' and 'b_h2d_bytes'
+        (the flat words and the offset table)."""
+        if self._decode_tables is None:
+            raise ValueError("this codec's Huffman table is not "
+                             "device-decodable (code lengths outside "
+                             "[1, MAX_LUT_BITS]); use decode_batch_async")
+        mode, hl_wl = self._batch_layout(encoded)
+        t0 = time.perf_counter()
+        flat, offs = self._flat_stream_upload(encoded)
+        t1 = time.perf_counter()
+        out = self._decode_unpack(self._upload(flat.view(np.int32)),
+                                  self._upload(offs), mode, *hl_wl,
+                                  out_uint8)
+        _acc(stats, "b_rebuild_s", t1 - t0)
+        _acc(stats, "b_h2d_dispatch_s", time.perf_counter() - t1)
+        _acc(stats, "b_h2d_bytes", flat.nbytes + offs.nbytes)
+        return out
+
     def roundtrip_pipelined(self, batches, coarse_ratio: float,
                             medium_ratio: float, *,
                             device_pack: bool = False,
                             out_uint8: bool = False,
+                            device_unpack: bool = False,
                             threads: Optional[bool] = None
                             ) -> Tuple[List[np.ndarray],
                                        List[List[EncodedImage]]]:
@@ -676,13 +937,14 @@ class CGICCodec:
         entropy stage with the decode dispatch (worker B) and the fetch of
         the reconstructions (worker C) at once, with bounded queues between
         them. The C++ coder releases the interpreter lock, so the entropy
-        stage overlaps the dispatch.
+        stage overlaps the dispatch. device_unpack=True decodes through the
+        device receiver (decode_batch_device_async) where the table allows.
 
         After the call, self.last_pipeline_stats holds each stage's summed
         seconds and bytes (a_upload_s, b_sync_s, b_fetch_s, b_frame_s,
         b_rebuild_s, b_h2d_dispatch_s, b_h2d_bytes, c_sync_s, c_fetch_s,
-        wall_s, threaded); the stage sums against wall_s say how much the
-        stages overlapped.
+        wall_s, threaded, device_unpack); the stage sums against wall_s say
+        how much the stages overlapped.
 
         Returns (reconstructions per batch, bundles per batch)."""
         batches = list(batches)
@@ -692,8 +954,13 @@ class CGICCodec:
             return self._roundtrip_threaded(batches, coarse_ratio,
                                             medium_ratio,
                                             device_pack=device_pack,
-                                            out_uint8=out_uint8)
+                                            out_uint8=out_uint8,
+                                            device_unpack=device_unpack)
+        engaged = self._unpack_engaged(device_unpack)
+        dec_async = (self.decode_batch_device_async if engaged
+                     else self.decode_batch_async)
         stats = defaultdict(float)
+        stats["device_unpack"] = float(engaged)
         t_wall = time.perf_counter()
         recs: List[np.ndarray] = []
         encs_all: List[List[EncodedImage]] = []
@@ -723,8 +990,8 @@ class CGICCodec:
             encs_all.append(encs)
             if pend_d is not None:
                 fetch_rec(pend_d)
-            pend_d = _Fetch(self.decode_batch_async(
-                encs, out_uint8=out_uint8, stats=stats))
+            pend_d = _Fetch(dec_async(encs, out_uint8=out_uint8,
+                                      stats=stats))
             pend_e = nxt
         if pend_d is not None:
             fetch_rec(pend_d)
@@ -735,7 +1002,7 @@ class CGICCodec:
 
     def _roundtrip_threaded(self, batches, coarse_ratio: float,
                             medium_ratio: float, *, device_pack: bool,
-                            out_uint8: bool):
+                            out_uint8: bool, device_unpack: bool = False):
         """The three-thread schedule of roundtrip_pipelined. The queues hold
         at most two batches a stage, which bounds device memory. A worker's
         first error stops the dispatch; the workers drain their queues so
@@ -747,7 +1014,11 @@ class CGICCodec:
         qa: "queue.Queue" = queue.Queue(maxsize=2)
         qb: "queue.Queue" = queue.Queue(maxsize=2)
         errors: List[BaseException] = []
+        engaged = self._unpack_engaged(device_unpack)
+        dec_async = (self.decode_batch_device_async if engaged
+                     else self.decode_batch_async)
         stats = defaultdict(float)   # each stage writes its own keys
+        stats["device_unpack"] = float(engaged)
         t_wall = time.perf_counter()
 
         def worker_b():
@@ -762,8 +1033,8 @@ class CGICCodec:
                 try:
                     with torch.no_grad():
                         encs = self.encode_finish(pend, stats=stats)
-                        rec = _Fetch(self.decode_batch_async(
-                            encs, out_uint8=out_uint8, stats=stats))
+                        rec = _Fetch(dec_async(encs, out_uint8=out_uint8,
+                                               stats=stats))
                     qb.put((i, encs, rec))
                 except BaseException as e:   # raised on the caller's thread
                     errors.append(e)

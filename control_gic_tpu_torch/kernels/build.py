@@ -49,6 +49,7 @@ SIGNATURES = {
     # one block of int64 arguments (ops/fused_norm.py::_launch)
     "gn_moments": {"cgic_gn_moments": (_I, [_P])},
     "spatial_norm_apply": {"cgic_spatial_norm_apply": (_I, [_P])},
+    "huffman_scan": {"cgic_huffman_scan": (_I, [_P] * 5 + [_I] * 4 + [_P])},
 }
 
 _LOCK = threading.Lock()

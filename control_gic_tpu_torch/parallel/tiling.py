@@ -15,8 +15,9 @@ group after tile group), `compress_tiled_many` (many images, software-
 pipelined across groups and images) and `compress_tiled_device` (the tiled
 CLI's default: one upload and one download per image, tiles sliced and
 stitched on the device, streams packed there, images overlapped across the
-host entropy stage by threads). The mesh (ROADMAP queue 1 item 13) and the
-device-unpack receiver (item 11b) are not ported yet and raise.
+host entropy stage by threads; device_unpack=True decodes the streams on
+the device as well). The mesh (ROADMAP queue 1 item 13) is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..codec import CGICCodec, EncodedImage, _Fetch
+from ..codec import CGICCodec, EncodedImage, _Fetch, unpack_impl
 from ..coding.stream_pack import fused_to_bytes
 from ..ops.router import mode_from_ratios
 
@@ -197,6 +198,31 @@ def _decode_stitch(codec: CGICCodec, canvas: torch.Tensor, buf: torch.Tensor,
                                canvas, buf)
 
 
+@torch.no_grad()
+def _decode_stitch_unpack(codec: CGICCodec, canvas: torch.Tensor,
+                          flat: torch.Tensor, offs: torch.Tensor, mode: int,
+                          offsets: tuple, th: int, tw: int,
+                          out_uint8: bool) -> torch.Tensor:
+    """The device-unpack decode + stitch program: (canvas, flat stream
+    words, word-offset table) -> the canvas with the tiles decoded ON the
+    device (Huffman decode and grid rebuild, codec.make_rebuild_batch)
+    written at `offsets`; the receiver's upload is the compressed payload.
+    The canvas is a static input, as in _decode_stitch."""
+    impl = unpack_impl()
+    luts = codec._decode_luts_on_device()
+
+    def fn(canvas, flat, offs):
+        rec = codec._decode_unpack_fn(flat, offs, luts, mode, th // 4,
+                                      tw // 4, out_uint8, impl)
+        for j, (y, x) in enumerate(offsets):
+            canvas[y:y + th, x:x + tw] = rec[j]
+        return canvas
+
+    return codec._programs.run(
+        codec._tile_fns, ("decu", mode, offsets, th, tw, out_uint8, impl),
+        fn, canvas, flat, offs)
+
+
 def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
                           medium_ratio: float, tile: int = 768,
                           out_uint8: bool = True, threads: bool = True,
@@ -217,19 +243,26 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
     Streams and bpp equal compress_tiled(overlap=0)'s; the reconstruction
     differs only by the uint8 quantization (clip, * 255, truncate, as
     cli.common.save_png) with out_uint8=True. CONTROL_GIC_PIPE_TRACE=1
-    prints each stage's start and end. device_unpack=True (the device
-    Huffman receiver) is not ported yet and raises.
+    prints each stage's start and end.
+
+    device_unpack=True decodes the streams on the device
+    (codec.decode_batch's device_unpack): the receiver's upload shrinks from
+    the compact grids to the compressed payload, pixel-identical. The
+    default (None) is the host receiver, as in JAX; a table the device
+    cannot decode raises.
 
     Returns [(reconstruction, bpp, bundles), ...] in input order; the stage
     seconds and bytes land in codec.last_pipeline_stats."""
     if tile % 16:
         raise ValueError(f"tile must be a multiple of 16, got {tile}")
-    if device_unpack:
-        raise NotImplementedError(
-            "device_unpack needs the device Huffman receiver (ROADMAP "
-            "queue 1 item 11b), not ported yet")
+    if device_unpack is None:
+        device_unpack = False
+    if device_unpack and codec._decode_tables is None:
+        raise ValueError("device_unpack=True needs a device-decodable "
+                         "Huffman table (code lengths in [1, MAX_LUT_BITS])")
     trace = os.environ.get("CONTROL_GIC_PIPE_TRACE") == "1"
     stats = defaultdict(float)   # each stage writes its own keys
+    stats["device_unpack"] = float(device_unpack)
     t_run0 = time.perf_counter()
 
     def _tr(msg):
@@ -302,15 +335,24 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
                     for j in range(len(offs))]
             for (t, _, _), e in zip(tyx, encs):
                 bundles[t] = e
-            inds = [codec._rebuild(e)[0] for e in encs]
-            dec_in = codec._compact_decode_input(encs, inds)
-            stats["b_rebuild_s"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            canvas = _decode_stitch(codec, canvas,
-                                    codec._upload(dec_in.view(np.int16)),
-                                    mode, offs, th, tw, out_uint8)
+            if device_unpack:
+                flat, offtbl = codec._flat_stream_upload(encs)
+                stats["b_rebuild_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                canvas = _decode_stitch_unpack(
+                    codec, canvas, codec._upload(flat.view(np.int32)),
+                    codec._upload(offtbl), mode, offs, th, tw, out_uint8)
+                stats["b_h2d_bytes"] += flat.nbytes + offtbl.nbytes
+            else:
+                inds = [codec._rebuild(e)[0] for e in encs]
+                dec_in = codec._compact_decode_input(encs, inds)
+                stats["b_rebuild_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                canvas = _decode_stitch(codec, canvas,
+                                        codec._upload(dec_in.view(np.int16)),
+                                        mode, offs, th, tw, out_uint8)
+                stats["b_h2d_bytes"] += dec_in.nbytes
             stats["b_h2d_dispatch_s"] += time.perf_counter() - t0
-            stats["b_h2d_bytes"] += dec_in.nbytes
         _tr(f"B{i} decode dispatched")
         return bundles, _Fetch(canvas)
 

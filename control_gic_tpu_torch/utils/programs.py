@@ -66,6 +66,7 @@ from typing import Callable, List, Optional
 import torch
 
 from .. import ops
+from ..coding import huffman_decode_device
 from ..kernels import build
 from ..ops import attention, fused_norm, norm_conv
 
@@ -78,7 +79,8 @@ SWITCHES = ("CONTROL_GIC_FUSED_NORM", "CONTROL_GIC_STATS_KERNEL",
             "CONTROL_GIC_FLASH_BWD")
 
 _COUNTERS = (attention.KERNEL_LAUNCHES, norm_conv.KERNEL_LAUNCHES,
-             fused_norm.KERNEL_LAUNCHES)
+             fused_norm.KERNEL_LAUNCHES,
+             huffman_decode_device.KERNEL_LAUNCHES)
 
 
 def call_state() -> tuple:

@@ -80,3 +80,17 @@ def test_source_imports_nothing_of_jax(path):
             names.append(node.module or "")
     bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_every_kernel_source_is_built_and_driven():
+    """Each CUDA source of kernels/ has its exported functions declared in
+    kernels/build.SIGNATURES, and chip_smoke.py builds it and holds a kernel
+    of it against its plain version (chip_smoke.KERNELS)."""
+    import chip_smoke
+    from control_gic_tpu_torch.kernels import build
+    sources = {f[:-3] for f in os.listdir(build.KERNEL_DIR)
+               if f.endswith(".cu")}
+    assert sources == set(build.SIGNATURES)
+    assert sources == {os.path.basename(k["source"])[:-3]
+                       for k in chip_smoke.KERNELS.values()}
+    assert "huffman_scan" in sources

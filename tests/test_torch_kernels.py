@@ -811,3 +811,90 @@ def test_captured_programs_match_eager(graph_codecs, ratios):
         assert (g_rec.float() - e_rec.float()).abs().max().item() <= 1e-3
     assert g_out[1][1].data_ptr() != g_out[2][1].data_ptr()
     assert not torch.equal(g_out[1][1], g_out[2][1])
+
+
+# ------------------------------------------------- the Huffman scan kernel
+
+def _scan_inputs(skew, n_cap, lanes, seed):
+    """Real streams of a table with Poisson counts skewed by `skew` (None:
+    uniform, every code 10 bits), one lane per count in `lanes`, as int32
+    CPU tensors: (payloads [S, W], counts [S], lut_sym, lut_len, L)."""
+    import numpy as np
+
+    from control_gic_tpu_torch.coding import HuffmanCodec
+    from control_gic_tpu_torch.coding import huffman_decode_device as D
+    rng = np.random.default_rng(seed)
+    counts = (np.ones(1024, np.int64) if skew is None else np.maximum(
+        rng.poisson(100 * skew ** rng.uniform(-1, 1, 1024), 1024), 1))
+    h = HuffmanCodec.from_counts(counts)
+    lut_sym, lut_len, L = D.build_decode_lut(h.codes)
+    cw = n_cap * L // 32 + 2
+    words = [D.words_from_frame(h.encode(rng.integers(0, 1024, n)), cw)[0]
+             for n in lanes]
+    return (torch.from_numpy(np.stack(words).view(np.int32)),
+            torch.tensor(lanes, dtype=torch.int32),
+            torch.from_numpy(lut_sym), torch.from_numpy(lut_len), L)
+
+
+@pytest.mark.parametrize("skew, n_cap, lanes", [
+    (None, 24576, (24576, 20000)),      # L = 10: the table in shared memory
+    (20.0, 24576, (24576, 13)),         # L = 18: read through L1 / L2
+    (50.0, 1000, (0, 1, 999, 1000)),    # L = 20, ragged lanes
+    (20.0, 16, (16,) * 300)])           # many lanes
+def test_huffman_scan_kernel_matches_plain(cuda, skew, n_cap, lanes):
+    """The scan kernel equals the plain loop (run on the CPU) exactly, zeros
+    past each lane's count included, and adds one launch a call."""
+    from control_gic_tpu_torch.coding import huffman_decode_device as D
+    payloads, counts, lut_sym, lut_len, L = _scan_inputs(skew, n_cap, lanes,
+                                                         len(lanes))
+    want = D.huffman_decode_bits_scan_reference(payloads, counts, lut_sym,
+                                                lut_len, n_cap, L)
+    before = D.KERNEL_LAUNCHES["huffman_scan"]
+    got = D.huffman_decode_bits_scan(payloads.to(cuda), counts.to(cuda),
+                                     lut_sym.to(cuda), lut_len.to(cuda),
+                                     n_cap, L)
+    torch.cuda.synchronize()
+    assert D.KERNEL_LAUNCHES["huffman_scan"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def test_huffman_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from control_gic_tpu_torch.coding import huffman_decode_device as D
+    payloads, counts, lut_sym, lut_len, L = _scan_inputs(None, 64, (64,), 0)
+    args = [payloads.to(cuda), counts.to(cuda), lut_sym.to(cuda),
+            lut_len.to(cuda)]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        D.huffman_scan_kernel(payloads, counts, lut_sym, lut_len, 64, L)
+    with pytest.raises(TypeError, match="int32"):
+        D.huffman_scan_kernel(args[0].long(), *args[1:], 64, L)
+    with pytest.raises(ValueError, match="guard word"):
+        D.huffman_scan_kernel(args[0][:, :10].contiguous(), *args[1:], 64, L)
+    with pytest.raises(ValueError, match="shape"):
+        D.huffman_scan_kernel(*args[:2], args[2][:5].contiguous(), args[3],
+                              64, L)
+
+
+@pytest.mark.parametrize("impl", ["scan", "rank"])
+def test_device_unpack_programs_match_eager(graph_codecs, monkeypatch, impl):
+    """decode_batch(device_unpack=True) through captured programs (the first
+    batch captures, the second replays) equals the eager codec's, and the
+    host receiver's uint8 output; the scan launches once per Huffman
+    stream either way."""
+    import numpy as np
+
+    from control_gic_tpu_torch.coding import huffman_decode_device as D
+    monkeypatch.setenv("CONTROL_GIC_UNPACK_IMPL", impl)
+    graph, eager = graph_codecs
+    imgs = np.random.default_rng(43).uniform(0, 1, (2, 2, 256, 256, 3))
+    for img in imgs:
+        encs = graph.encode_batch(img, 0.1, 0.4, device_pack=True)
+        launches = []
+        for codec in (graph, eager):
+            before = D.KERNEL_LAUNCHES["huffman_scan"]
+            out = codec.decode_batch(encs, out_uint8=True,
+                                     device_unpack=True, strict=True)
+            launches.append(D.KERNEL_LAUNCHES["huffman_scan"] - before)
+            assert codec.last_decode_path == "device"
+            np.testing.assert_array_equal(
+                out, codec.decode_batch(encs, out_uint8=True))
+        assert launches == ([3, 3] if impl == "scan" else [0, 0])

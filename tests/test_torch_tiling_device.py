@@ -125,9 +125,6 @@ def test_tiled_many_matches_jax_and_compress_tiled(codecs, images, jax_tiled,
 
 def test_unported_options_raise(codecs, images):
     _, codec = codecs
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tiling.compress_tiled_device(codec, images, 0.1, 0.4, tile=TILE,
-                                     device_unpack=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         tiling.compress_tiled(codec, _float(images[0]), 0.1, 0.4, mesh=1)
     with pytest.raises(NotImplementedError, match="item 13"):
