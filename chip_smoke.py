@@ -35,12 +35,21 @@ Phases, each printing a line of its own:
   8. training: the full-width f32 generator + discriminator step at 256x256,
      batch 2, through the train CLI's loop on synthetic batches: the first
      step's generator gradients with the kernels against the same step under
-     ops.plain_versions(), 3 steps with exact launch counts per step, one
-     eval step, a checkpoint save and restore, a profile of one step (device
-     ms of the flash backward kernels, busy time, idle share); then 2
-     bf16 steps with the same launch checks, their first step's gradients
-     against the plain versions (logged) and the same profile of one step,
-     and the train CLI on PNGs when PIL is installed;
+     ops.plain_versions(); 3 steps as CUDA graphs (the Trainer's default)
+     with exact launch counts per step, and the same 3 steps from the same
+     seed with graphs=False, both under deterministic algorithms: every
+     loss within 1e-6 relative, every parameter, EMA tensor, Adam moment
+     and running statistic within 1e-5 of its max (the largest differences
+     logged); eval_step both ways, a checkpoint save and restore, ms per
+     step both ways in turns, memory (the steps' peak above the resident
+     state, the programs' pool), a profile of one step each way (device ms
+     of the flash backward kernels, busy time, idle share); 3 steps with
+     remat, adaptive_g_weight and disc_start=2 (two programs) both ways; 2
+     steps and eval_step under a forced chain engagement both ways (the
+     weight packs made inside the programs); then 2 bf16 steps both ways
+     with the same checks, their first step's gradients against the plain
+     versions (logged), ms per step and profiles; and the train CLI on PNGs
+     when PIL is installed;
   9. 256x256 with CONTROL_GIC_FUSED_NORM=1: the phase-4 round trip with the
      SpatialNorm apply kernel, launch counts and a profile;
  10. high-res tiled codec: cli/infer_highres.main on a 1356x2040 PNG (the
@@ -1169,7 +1178,10 @@ def device_profile(run):
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation (Optimizer.step#Adam.step) spans its kernels
+        # and the host gaps between them: not device work
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             spans.append((e.time_range.start, e.time_range.end))
             name = e.name[:90]     # template names share long prefixes
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
@@ -2153,27 +2165,31 @@ def _loop_args(workdir: str, steps: int, tag: str):
         os.path.join(workdir, f"logs_{tag}")])
 
 
-def _check_steps(rec: StepRecorder, label: str) -> None:
+def _check_steps(rec: StepRecorder, label: str, expected=None) -> None:
     import math
+    expected = PER_TRAIN_STEP if expected is None else expected
     for i, (launched, metrics) in enumerate(zip(rec.launches, rec.metrics)):
-        if launched != PER_TRAIN_STEP:
+        if launched != expected:
             raise AssertionError(f"{label} step {i}: kernel launches "
-                                 f"{launched}, expected {PER_TRAIN_STEP}")
+                                 f"{launched}, expected {expected}")
         bad = [k for k, v in metrics.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"{label} step {i}: non-finite {bad}")
 
 
 def generator_grads(trainer, state, x):
-    """The generator's gradients of one step's loss, and the encode
-    output; nothing in the state changes."""
+    """The generator's gradients of one step's loss, and the VQ indices;
+    nothing in the state changes. No tensor of the autograd graph is
+    returned: a graph kept alive keeps its AccumulateGrad nodes on the
+    stream of this eager call, and a captured step that reaches them would
+    make the legacy stream wait on the capture, which CUDA refuses."""
     import torch
     params = list(state.gen.parameters())
     loss, _, enc, _ = trainer.forward_losses(state,
                                              trainer.to_input(state, x))
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)], enc
+            for p, g in zip(params, grads)], enc.indices
 
 
 def step_profile(trainer, state, x) -> dict:
@@ -2199,23 +2215,176 @@ def step_profile(trainer, state, x) -> dict:
         top_kernels_ms={k: v / 1e3 for k, v in top})
 
 
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms, and PyTorch's deterministic
+    implementations where it has them (index_add_, the backward of the
+    nearest resizes, runs with float atomics otherwise), so that a step
+    with CUDA graphs and the same step without them can be compared
+    value for value."""
+    import torch
+    old = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            old[:2]
+        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
+
+
+def memory_of(run, trainer) -> dict:
+    """run() with the memory it takes: the allocator's peak above what was
+    allocated before it (the resident states; with graphs, the first
+    call's warm-up), and with graphs the bytes of the training programs'
+    pool after it (their captured intermediates and static outputs; a
+    replay allocates nothing), in GiB."""
+    import torch
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    pool = trainer.program_stats().get("pool_bytes")
+    return out, dict(
+        steps_peak_gib=(torch.cuda.max_memory_allocated() - resident)
+        / 2 ** 30,
+        resident_gib=resident / 2 ** 30,
+        pool_gib=None if pool is None else pool / 2 ** 30)
+
+
+def run_steps(trainer, state, batches):
+    """train_step over `batches` through a StepRecorder; returns the
+    recorder and memory_of's figures."""
+    rec = StepRecorder(trainer)
+
+    def run():
+        for x in batches:
+            rec.train_step(state, x)
+    return rec, memory_of(run, trainer)[1]
+
+
+def _state_tensors(state) -> dict:
+    """The tensors a step writes, by name: parameters, EMA, Adam moments,
+    running statistics, counters."""
+    out = {f"gen.{n}": p for n, p in state.gen.named_parameters()}
+    out.update({f"ema.{n}": t for n, t in state.ema.items()})
+    out.update({f"disc.{n}": t for n, t in state.disc.state_dict().items()})
+    for tag, opt, mod in (("opt_gen", state.opt_gen, state.gen),
+                          ("opt_disc", state.opt_disc, state.disc)):
+        for n, p in mod.named_parameters():
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{tag}.{n}.{k}"] = opt.state[p][k]
+    out["codebook_counts"] = state.codebook_counts
+    return out
+
+
+def compare_runs(label: str, graph, eager) -> dict:
+    """Steps with CUDA graphs against the same steps eagerly ((state,
+    StepRecorder) each): every loss of every step within 1e-6 relative,
+    every tensor the steps write within 1e-5 of its max. Returns the
+    largest differences; raises beyond the tolerances."""
+    (gs, grec), (es, erec) = graph, eager
+    loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(grec.metrics, erec.metrics)
+                   for k in b if "loss" in k)
+    want = _state_tensors(es)
+    errs = {}
+    for name, t in _state_tensors(gs).items():
+        w = want[name].double()
+        errs[name] = ((t.double() - w).abs().max()
+                      / max(w.abs().max().item(), 1e-30)).item()
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    out = dict(steps=len(grec.metrics), loss_worst_rel_err=loss_rel,
+               tensors=len(errs), tensors_differing=sum(
+                   e > 0 for e in errs.values()),
+               tensor_worst_rel_errs=dict(worst), all_equal=(
+                   loss_rel == 0 and worst[0][1] == 0))
+    log(f"train {label} graphs vs eager", tol_loss=1e-6, tol_tensor=1e-5,
+        **out)
+    if not (loss_rel <= 1e-6 and worst[0][1] <= 1e-5):
+        raise AssertionError(f"{label}: captured steps differ from eager "
+                             f"ones: {out}")
+    return out
+
+
+def timed_pair(graph, eager, batches) -> dict:
+    """ms per step with and without CUDA graphs, in turns (graph, eager,
+    graph, eager, ...) on `batches`; (trainer, state) each. The means leave
+    out the first step of each: outside deterministic() the graph side
+    captures a program of its own there."""
+    rec_g, rec_e = StepRecorder(graph[0]), StepRecorder(eager[0])
+    for x in batches:
+        rec_g.train_step(graph[1], x)
+        rec_e.train_step(eager[1], x)
+    mean = lambda ms: sum(ms[1:]) / len(ms[1:])
+    return {"timed_steps": dict(graph_ms=rec_g.ms, eager_ms=rec_e.ms,
+                                graph_ms_mean=mean(rec_g.ms),
+                                eager_ms_mean=mean(rec_e.ms))}
+
+
+def graphs_vs_eager(label: str, cfg, tcfg, batches, expected=None,
+                    state=None, trainer=None):
+    """The same steps from the same seed with CUDA graphs and with
+    graphs=False, both deterministic: launches per step exact (`expected`;
+    None: PER_TRAIN_STEP), values compared (compare_runs). Takes an
+    existing (trainer, state) for the graph side if given. Returns
+    ((trainer, state, recorder, memory_of's figures) with graphs, the same
+    eagerly, the comparison)."""
+    from control_gic_tpu_torch.train import Trainer, create_train_state
+    if state is None:
+        trainer = Trainer(cfg, tcfg)
+        state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+    eager = Trainer(cfg, tcfg, graphs=False)
+    eager_state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+    with deterministic():
+        rec_g, peak_g = run_steps(trainer, state, batches)
+        rec_e, peak_e = run_steps(eager, eager_state, batches)
+    _check_steps(rec_g, f"{label} graphs", expected)
+    _check_steps(rec_e, f"{label} eager", expected)
+    if rec_g.launches != rec_e.launches:
+        raise AssertionError(f"{label}: launches with graphs "
+                             f"{rec_g.launches}, eagerly {rec_e.launches}")
+    agree = compare_runs(label, (state, rec_g), (eager_state, rec_e))
+    return ((trainer, state, rec_g, peak_g), (eager, eager_state, rec_e,
+                                              peak_e), agree)
+
+
+def release() -> None:
+    """Free what the last run left: collect reference cycles (an autograd
+    graph, a traceback), then return the allocator's cached blocks."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_train(dev: dict, workdir: str) -> dict:
-    """Phase 8: the training step at full width, 256x256, batch 2. Returns
-    the kernel launches of the 3 f32 steps."""
+    """Phase 8: the training step at full width, 256x256, batch 2, as CUDA
+    graphs (the Trainer's default) against graphs=False. Returns the kernel
+    launches of the 3 f32 steps."""
     import numpy as np
     import torch
 
     from control_gic_tpu_torch.cli import train as train_cli
     from control_gic_tpu_torch.models import CGICConfig
-    from control_gic_tpu_torch.ops import plain_versions
+    from control_gic_tpu_torch.ops import norm_conv, plain_versions
     from control_gic_tpu_torch.train import (TrainConfig, Trainer,
                                              create_train_state)
+    from control_gic_tpu_torch.train.losses import LossConfig
     from control_gic_tpu_torch.utils.checkpoint import (latest_step,
                                                         restore_checkpoint)
 
+    release()                  # the codec phases' programs and caches
     t0 = time.perf_counter()
     cfg, tcfg = CGICConfig(dtype="float32"), TrainConfig()
-    trainer = Trainer(cfg, tcfg)
+    trainer = Trainer(cfg, tcfg)                   # CUDA graphs, by default
     state = create_train_state(cfg, tcfg, device="cuda", seed=0)
     batches = train_batches(100, TRAIN_STEPS)
     names = [n for n, _ in state.gen.named_parameters()]
@@ -2242,23 +2411,24 @@ def phase_train(dev: dict, workdir: str) -> dict:
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
     log("train gradients kernels vs plain", tensors=len(errs), tol=1e-3,
         worst_rel_errs=dict(worst), plain_vs_plain_worst_rel_err=floor,
-        vq_indices_equal=bool(torch.equal(enc_k.indices, enc_p.indices)),
+        vq_indices_equal=bool(torch.equal(enc_k, enc_p)),
         launches=launched)
     if not worst[0][1] <= 1e-3:
         raise AssertionError(f"generator gradients with the kernels differ "
                              f"from the plain versions: {dict(worst)}")
     del g_k, g_p, g_p2, enc_k, enc_p
 
-    # 3 steps through the train CLI's loop
+    # 3 steps through the train CLI's loop as CUDA graphs (the first call
+    # runs a real step, then captures; the others replay), then the same
+    # steps from the same seed eagerly; both deterministic
     before = [p.detach().clone() for p in state.gen.parameters()]
     rec = StepRecorder(trainer)
     args = _loop_args(workdir, TRAIN_STEPS, "f32")
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    state = train_cli.train_loop(args, rec, state, iter(batches))
-    torch.cuda.synchronize()
+    with deterministic():
+        state, mem = memory_of(lambda: train_cli.train_loop(
+            args, rec, state, iter(batches)), trainer)
     launches = read_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     _check_steps(rec, "f32")
     changed = sum(not torch.equal(a, p) for a, p in
                   zip(before, state.gen.parameters()))
@@ -2267,9 +2437,23 @@ def phase_train(dev: dict, workdir: str) -> dict:
         raise AssertionError(f"after {TRAIN_STEPS} steps: step {state.step}, "
                              f"{changed} of {len(names)} generator tensors "
                              f"changed")
-    vm = {k: float(v) for k, v in trainer.eval_step(state, batches[0]).items()}
-    if not all(np.isfinite(list(vm.values()))):
-        raise AssertionError(f"eval metrics not finite: {vm}")
+    eager = Trainer(cfg, tcfg, graphs=False)
+    eager_state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+    with deterministic():
+        rec_e, mem_eager = run_steps(eager, eager_state, batches)
+    _check_steps(rec_e, "f32 eager")
+    agree = compare_runs("f32", (state, rec), (eager_state, rec_e))
+    # eval_step as a program (captured, then replayed) against eager
+    with deterministic():
+        vm = [{k: float(v) for k, v in trainer.eval_step(state, batches[0])
+               .items()} for _ in range(2)]
+        vm_e = {k: float(v) for k, v in
+                eager.eval_step(eager_state, batches[0]).items()}
+    eval_rel = max(abs(vm[1][k] - vm_e[k]) / max(abs(vm_e[k]), 1e-12)
+                   for k in vm_e)
+    if not all(np.isfinite(list(vm[1].values()))) or eval_rel > 1e-6 \
+            or vm[0] != vm[1]:
+        raise AssertionError(f"eval metrics: {vm} against eager {vm_e}")
 
     # the loop's closing checkpoint, restored into a fresh state
     saved = latest_step(args.ckpt_dir)
@@ -2286,34 +2470,114 @@ def phase_train(dev: dict, workdir: str) -> dict:
                         state.disc.state_dict().values()))
             and all(torch.equal(fresh.ema[k], state.ema[k])
                     for k in state.ema)
-            and all(torch.equal(a["exp_avg_sq"], b["exp_avg_sq"]) for a, b in
+            and all(torch.equal(a[k], b[k]) for a, b in
                     zip(fresh.opt_gen.state.values(),
-                        state.opt_gen.state.values())))
+                        state.opt_gen.state.values())
+                    for k in ("exp_avg_sq", "step")))
     del fresh
     if not same:
         raise AssertionError("the restored checkpoint differs from the state")
 
+    # ms per step both ways, in turns, on other batches (PyTorch's default
+    # algorithms: a program of its own), then one profiled step each way
+    timing = timed_pair((trainer, state), (eager, eager_state),
+                        train_batches(500, 5))
     log("train f32", config="CGICConfig(dtype=float32), 256x256, batch 2",
         params=sum(p.numel() for p in state.gen.parameters()),
-        steps=TRAIN_STEPS, step_ms=rec.ms,
-        step_ms_mean_2_3=sum(rec.ms[1:]) / len(rec.ms[1:]),
+        steps=TRAIN_STEPS, step_ms=rec.ms, eager_step_ms=rec_e.ms,
         launches=launches, launches_per_step=rec.launches[0],
-        metrics_last=rec.metrics[-1], eval_metrics=vm,
-        params_changed=changed, checkpoint_step=saved,
-        checkpoint_restored_equal=same, peak_mem_gib=peak_gib,
+        metrics_last=rec.metrics[-1], eval_metrics=vm[1],
+        eval_vs_eager_worst_rel_err=eval_rel, params_changed=changed,
+        checkpoint_step=saved, checkpoint_restored_equal=same,
+        memory=mem, eager_memory=mem_eager,
+        graphs_vs_eager=agree, **timing, programs=trainer.program_stats(),
         **step_profile(trainer, state, batches[0]),
         card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
-    del state, trainer, rec
-    torch.cuda.empty_cache()
+    log("train f32 eager", **step_profile(eager, eager_state, batches[0]),
+        card=dev["nvidia_smi"])
+    del state, trainer, rec, eager, eager_state, rec_e
+    release()
 
-    # 2 steps in bf16 (the bf16 backward kernels' path), same launch
-    # checks; the first step's generator gradients against the plain
-    # versions are logged for information (bf16 rounds at other points in
-    # the plain attention), then a profile of one step
+    # remat, the adaptive weight and disc_start=2: 3 steps cross the
+    # switch, so two programs are captured. The per-step launches stay
+    # PER_TRAIN_STEP: at 256x256 the flash attentions are the mids' (64x64
+    # latent, 4096 tokens), which remat does not wrap; the trunk's run at
+    # 32x32 (1024 tokens, the plain path), and the adaptive weight's
+    # gradients reach only conv_out
+    t0 = time.perf_counter()
+    cfg_r = CGICConfig(dtype="float32", remat=True)
+    tcfg_r = TrainConfig(loss=LossConfig(disc_start=2,
+                                         adaptive_g_weight=True))
+    (tr_g, st_g, rec_g, peak_g), (tr_e, st_e, rec_e, peak_e), agree = \
+        graphs_vs_eager("f32 remat adaptive", cfg_r, tcfg_r, batches)
+    programs = tr_g.program_stats()
+    if programs["programs_captured"] != 2:
+        raise AssertionError(f"remat run: {programs} (expected the two "
+                             "sides of disc_start)")
+    timing = timed_pair((tr_g, st_g), (tr_e, st_e), train_batches(700, 3))
+    log("train f32 remat adaptive disc_start=2", steps=TRAIN_STEPS,
+        step_ms=rec_g.ms, eager_step_ms=rec_e.ms,
+        launches_per_step=rec_g.launches[0], metrics_last=rec_g.metrics[-1],
+        memory=peak_g, eager_memory=peak_e, no_remat_memory=mem,
+        no_remat_eager_memory=mem_eager, programs=programs,
+        graphs_vs_eager=agree, **timing, card=dev["nvidia_smi"],
+        seconds=time.perf_counter() - t0)
+    del tr_g, st_g, rec_g, tr_e, st_e, rec_e
+    release()
+
+    # every chain-admissible trunk block engaged (the engagement rule): the
+    # chain and its weight packs run inside the captured steps and eval;
+    # the packs are made in the graph from the weights the replays write,
+    # so eval_step captured after 2 steps and replayed after a third equals
+    # the eager one each time
+    t0 = time.perf_counter()
+    norm_conv.set_engagement_rule(lambda shape, cout: True)
+    try:
+        reset_launches()
+        probe = create_train_state(cfg, tcfg, device="cuda", seed=0)
+        with deterministic():
+            Trainer(cfg, tcfg, graphs=False).train_step(probe, batches[0])
+        torch.cuda.synchronize()
+        forced = read_launches()
+        del probe
+        if not forced["chain_gn"] or not forced["chain_sn"]:
+            raise AssertionError(f"forced engagement: launches {forced}")
+        (tr_g, st_g, rec_g, _), (tr_e, st_e, rec_e, _), agree = \
+            graphs_vs_eager("f32 chain forced", cfg, tcfg, batches[:2],
+                            expected=forced)
+        evals = []
+        with deterministic():
+            for x in (None, batches[2]):
+                if x is not None:
+                    tr_g.train_step(st_g, x)
+                    tr_e.train_step(st_e, x)
+                got = {k: float(v) for k, v in
+                       tr_g.eval_step(st_g, batches[0]).items()}
+                want = {k: float(v) for k, v in
+                        tr_e.eval_step(st_e, batches[0]).items()}
+                evals.append(max(abs(got[k] - want[k])
+                                 / max(abs(want[k]), 1e-12) for k in want))
+    finally:
+        norm_conv.set_engagement_rule(None)
+    programs = tr_g.program_stats()
+    log("train f32 chain forced", steps=3, launches_per_step=forced,
+        eval_vs_eager_worst_rel_errs=evals, programs=programs,
+        graphs_vs_eager=agree, card=dev["nvidia_smi"],
+        seconds=time.perf_counter() - t0)
+    if max(evals) > 1e-6 or programs["programs_captured"] != 2:
+        raise AssertionError(f"forced chain: eval against eager {evals}, "
+                             f"{programs}")
+    del tr_g, st_g, rec_g, tr_e, st_e, rec_e
+    release()
+
+    # 2 steps in bf16 (the bf16 backward kernels' path) with graphs and
+    # eagerly, the same launch checks and comparison; the first step's
+    # generator gradients against the plain versions are logged for
+    # information (bf16 rounds at other points in the plain attention),
+    # then ms per step both ways and a profile of one step each way
     t0 = time.perf_counter()
     cfg16 = CGICConfig(dtype="bfloat16")
     trainer16 = Trainer(cfg16, tcfg)
-    rec16 = StepRecorder(trainer16)
     state16 = create_train_state(cfg16, tcfg, device="cuda", seed=0)
     batches16 = train_batches(200, 2)
     g_k, _ = generator_grads(trainer16, state16, batches16[0])
@@ -2322,17 +2586,22 @@ def phase_train(dev: dict, workdir: str) -> dict:
     errs16 = sorted(((n, rel(a.float(), b.float())) for n, a, b in
                      zip(names, g_k, g_p)), key=lambda kv: -kv[1])[:5]
     del g_k, g_p
-    train_cli.train_loop(_loop_args(workdir, 2, "bf16"), rec16, state16,
-                         iter(batches16))
-    _check_steps(rec16, "bf16")
+    (tr_g, st_g, rec16, peak16), (tr_e, st_e, rec16_e, peak16_e), agree = \
+        graphs_vs_eager("bf16", cfg16, tcfg, batches16, state=state16,
+                        trainer=trainer16)
+    timing = timed_pair((tr_g, st_g), (tr_e, st_e), train_batches(600, 5))
     log("train bf16", config="CGICConfig(dtype=bfloat16), 256x256, batch 2",
-        steps=2, step_ms=rec16.ms, launches_per_step=rec16.launches[0],
-        metrics_last=rec16.metrics[-1],
+        steps=2, step_ms=rec16.ms, eager_step_ms=rec16_e.ms,
+        launches_per_step=rec16.launches[0], metrics_last=rec16.metrics[-1],
         gradients_vs_plain_worst_rel_errs=dict(errs16),
-        **step_profile(trainer16, state16, batches16[0]),
+        memory=peak16, eager_memory=peak16_e,
+        graphs_vs_eager=agree, **timing, programs=tr_g.program_stats(),
+        **step_profile(tr_g, st_g, batches16[0]),
         card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
-    del state16, rec16, trainer16
-    torch.cuda.empty_cache()
+    log("train bf16 eager", **step_profile(tr_e, st_e, batches16[0]),
+        card=dev["nvidia_smi"])
+    del tr_g, st_g, rec16, tr_e, st_e, rec16_e, state16, trainer16
+    release()
     phase_train_cli(workdir)
     return launches
 

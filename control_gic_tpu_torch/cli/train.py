@@ -15,8 +15,11 @@ Failure handling:
 Usage:
   python -m control_gic_tpu_torch.cli.train --train-dir <imgs> [--val-dir <imgs>]
       [--config configs/train.yaml] [--steps 165000] [--batch-size 2]
-      [--image-size 256] [--dtype float32|bfloat16] [--ckpt-dir ./all_saves]
-      [--resume] [--max-restarts 3] [--device cuda|cpu]
+      [--image-size 256] [--dtype float32|bfloat16] [--remat]
+      [--ckpt-dir ./all_saves] [--resume] [--max-restarts 3]
+      [--device cuda|cpu]
+
+On CUDA each step runs as a CUDA graph (Trainer's default).
 
 `train_loop` takes any iterator of NHWC [-1, 1] batches, so a caller can
 drive the same loop with batches of its own.
@@ -59,6 +62,10 @@ def get_parser():
     p.add_argument("--ckpt-every", type=int, default=2000)
     p.add_argument("--log-every", type=int, default=30)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the trunk's blocks in the backward "
+                        "instead of keeping their activations (less "
+                        "memory, more compute); or model.remat in --config")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--log-dir", type=str, default="./logs")
@@ -105,13 +112,15 @@ def run_configs(args):
     if args.config:
         from ..config import load_config
         run_cfg = load_config(args.config)
-        model_cfg = dataclasses.replace(run_cfg.model,
-                                        resolution=args.image_size)
+        model_cfg = dataclasses.replace(
+            run_cfg.model, resolution=args.image_size,
+            remat=args.remat or run_cfg.model.remat)
         train_cfg = dataclasses.replace(run_cfg.train,
                                         coarse_ratio=args.ratios[0],
                                         medium_ratio=args.ratios[1])
     else:
-        model_cfg = CGICConfig(resolution=args.image_size, dtype=args.dtype)
+        model_cfg = CGICConfig(resolution=args.image_size, dtype=args.dtype,
+                               remat=args.remat)
         train_cfg = TrainConfig(learning_rate=args.lr,
                                 coarse_ratio=args.ratios[0],
                                 medium_ratio=args.ratios[1])

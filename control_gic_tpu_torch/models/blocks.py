@@ -12,10 +12,11 @@ proj_out, nin_shortcut, downsample.conv, upsample.conv), weights OIHW.
     through ops.fused_norm.spatial_norm (the apply kernel under
     CONTROL_GIC_FUSED_NORM);
   - ResnetBlock: norm -> swish -> 3x3 conv, twice, 1x1 nin_shortcut on a
-    channel change; SpatialNorm norms when zq_cond. It chains where the
-    caller threads moments and chain_admissible holds, else runs each
-    norm+conv pair as one per-call op where norm_conv_worthwhile holds
-    (CONTROL_GIC_NORM_CONV), else unfused;
+    channel change; SpatialNorm norms when zq_cond; dropout before conv2
+    when not deterministic. It chains where the caller threads moments and
+    chain_admissible holds, else runs each norm+conv pair as one per-call
+    op where norm_conv_worthwhile holds (CONTROL_GIC_NORM_CONV), else
+    unfused; an active dropout keeps it unfused, as in JAX;
   - AttnBlock: norm -> 1x1 q/k/v -> single-head attention over the tokens
     flattened row-major over (H, W) -> 1x1 proj_out, residual;
   - Downsample: pad (0,1,0,1), 3x3 conv stride 2;
@@ -42,6 +43,24 @@ from ..ops.resample import (nearest_resize, subpixel_enabled,
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout when not deterministic: each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the rest are zeroed.
+    The draws come from `generator` (on x's device); without one it raises,
+    as flax raises without a 'dropout' rng."""
+    if generator is None:
+        raise ValueError("dropout > 0 with deterministic=False draws from a "
+                         "torch.Generator: pass generator= (on the input's "
+                         "device)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -123,9 +142,10 @@ def make_norm(channels: int, zq_channels: Optional[int],
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  zq_channels: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         out_channels = out_channels or in_channels
+        self.dropout = dropout
         self.norm1 = make_norm(in_channels, zq_channels, dtype)
         self.conv1 = Conv2d(in_channels, out_channels, 3, dtype=dtype)
         self.norm2 = make_norm(out_channels, zq_channels, dtype)
@@ -135,21 +155,24 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, zq: Optional[torch.Tensor] = None,
                 mom_in: Optional[torch.Tensor] = None,
-                emit_mom: bool = False):
+                emit_mom: bool = False, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """mom_in / emit_mom thread the stats-in-epilogue chain through a
         trunk (ops/norm_conv.py): mom_in is the [B, 2, C] moments of x that
         the previous chained block emitted (norm1's stats pass is then
         skipped); emit_mom=True returns (out, moments of out). The caller
-        decides chain membership with chain_admissible."""
+        decides chain membership with chain_admissible. With dropout > 0
+        and deterministic=False, the dropout draws from `generator`."""
         b, _, hh, ww = x.shape
         out_ch = self.conv1.weight.shape[0]
-        if (emit_mom or mom_in is not None) and chain_admissible(x.shape,
-                                                                 out_ch):
+        drop = self.dropout > 0.0 and not deterministic
+        if (not drop and (emit_mom or mom_in is not None)
+                and chain_admissible(x.shape, out_ch)):
             return self._chained(x, zq, mom_in, emit_mom)
         assert mom_in is None and not emit_mom, \
             "mom_in/emit_mom passed to a block that cannot chain " \
             "(the caller checks chain_admissible first)"
-        if (norm_conv_worthwhile(x.shape, out_ch)
+        if (not drop and norm_conv_worthwhile(x.shape, out_ch)
                 and norm_conv_worthwhile((b, out_ch, hh, ww), out_ch)):
             # JAX's fuse / fuse_plain branches: each pair as one call
             op = self._pair_op(x, zq, spatial_norm_conv, group_norm_conv)
@@ -157,7 +180,10 @@ class ResnetBlock(nn.Module):
                    self.norm2, self.conv2)
         else:
             h = self.conv1(self.norm1(x, zq, act="swish"))
-            h = self.conv2(self.norm2(h, zq, act="swish"))
+            h = self.norm2(h, zq, act="swish")
+            if drop:
+                h = dropout(h, self.dropout, generator)
+            h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h

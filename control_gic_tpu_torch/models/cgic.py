@@ -37,9 +37,11 @@ class CGICConfig:
     resolution: int = 256
     in_channels: int = 3
     out_ch: int = 3
+    dropout: float = 0.0
     beta: float = 0.25
     entropy_patch_sizes: Tuple[int, int] = (8, 16)
     dtype: str = "float32"
+    remat: bool = False   # recompute the trunk's blocks in the backward
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -87,13 +89,15 @@ class CGIC(nn.Module):
                                attn_resolutions=c.attn_resolutions,
                                resolution=c.resolution,
                                z_channels=c.z_channels,
-                               in_channels=c.in_channels, dtype=dt)
+                               in_channels=c.in_channels, dtype=dt,
+                               dropout=c.dropout, remat=c.remat)
         self.decoder = Decoder(ch=c.ch, out_ch=c.out_ch, ch_mult=c.ch_mult,
                                num_res_blocks=c.num_res_blocks,
                                attn_resolutions=c.attn_resolutions,
                                resolution=c.resolution,
                                z_channels=c.z_channels,
-                               zq_channels=c.embed_dim, dtype=dt)
+                               zq_channels=c.embed_dim, dtype=dt,
+                               dropout=c.dropout, remat=c.remat)
         self.quant_conv = Conv2d(c.z_channels, c.embed_dim, 1, dtype=dt)
         self.post_quant_conv = Conv2d(c.embed_dim, c.z_channels, 1, dtype=dt)
         self.quantize = Codebook(c.n_embed, c.embed_dim)
@@ -124,11 +128,13 @@ class CGIC(nn.Module):
                                    coarse_ratio, medium_ratio,
                                    per_sample=per_sample)
 
-    def latent(self, x: torch.Tensor, router: RouterOutput) -> torch.Tensor:
+    def latent(self, x: torch.Tensor, router: RouterOutput, **drop
+               ) -> torch.Tensor:
         """The fused pre-VQ latent quant_conv(fuse(taps, masks)),
-        [B, embed_dim, H/4, W/4] in the compute dtype."""
+        [B, embed_dim, H/4, W/4] in the compute dtype. `drop`: the
+        encoder's deterministic and generator arguments."""
         dt = self.config.compute_dtype
-        z_fine, z_medium, z_coarse = self.encoder(x.to(dt))
+        z_fine, z_medium, z_coarse = self.encoder(x.to(dt), **drop)
         m_c, m_m, m_f = (m.to(dt)[:, None] for m in router.masks)
         h = (upsample_nearest(z_coarse, 4) * upsample_nearest(m_c, 4)
              + upsample_nearest(z_medium, 2) * upsample_nearest(m_m, 2)
@@ -136,26 +142,38 @@ class CGIC(nn.Module):
         return self.quant_conv(h)
 
     def encode(self, x: torch.Tensor, coarse_ratio: float,
-               medium_ratio: float, *, per_sample: bool = False
-               ) -> EncodeOutput:
+               medium_ratio: float, *, per_sample: bool = False,
+               deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> EncodeOutput:
+        """With dropout > 0 and deterministic=False the blocks' dropout
+        draws from `generator` (JAX: the 'dropout' rng)."""
         router = self.route(x, coarse_ratio, medium_ratio,
                             per_sample=per_sample)
-        vq = vq_quantize(self.latent(x, router).float(), self.codebook.float(),
+        latent = self.latent(x, router, deterministic=deterministic,
+                             generator=generator)
+        vq = vq_quantize(latent.float(), self.codebook.float(),
                          beta=self.config.beta)
         return EncodeOutput(quant=vq.z_q, emb_loss=vq.loss,
                             indices=vq.indices, router=router,
                             grain_indices=grain_indices_from_masks(router),
                             counts=vq.counts)
 
-    def decode(self, quant: torch.Tensor, masks) -> torch.Tensor:
+    def decode(self, quant: torch.Tensor, masks, *,
+               deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         quant = quant.to(self.config.compute_dtype)
-        return self.decoder(self.post_quant_conv(quant), quant, masks)
+        return self.decoder(self.post_quant_conv(quant), quant, masks,
+                            deterministic=deterministic, generator=generator)
 
     def decode_indices(self, indices: torch.Tensor, masks) -> torch.Tensor:
         """Receiver-side decode from an index grid [B, Hl, Wl]."""
         return self.decode(codebook_gather(indices, self.codebook), masks)
 
     def forward(self, x: torch.Tensor, coarse_ratio: float = 0.1,
-                medium_ratio: float = 0.4):
-        enc = self.encode(x, coarse_ratio, medium_ratio)
-        return self.decode(enc.quant, enc.router.masks), enc
+                medium_ratio: float = 0.4, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        enc = self.encode(x, coarse_ratio, medium_ratio,
+                          deterministic=deterministic, generator=generator)
+        return self.decode(enc.quant, enc.router.masks,
+                           deterministic=deterministic,
+                           generator=generator), enc

@@ -15,10 +15,12 @@ encoder.chain_step); mask injection, attention and Upsample end a chain. At
 level 0 the last block's moments feed norm_out + conv_out, which then run as
 one chain call with Cout = out_ch; where no moments come, they run as one
 per-call norm+conv if `norm_conv_worthwhile` says so, unfused otherwise.
+Under `remat` (or with deterministic=False) nothing chains, and the trunk's
+blocks run through encoder.trunk_call, as in the encoder.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,7 +30,7 @@ from ..ops.norm_conv import (admissible, norm_conv_worthwhile,
                              stats_from_moments)
 from ..ops.resample import avg_pool, nearest_resize, upsample_nearest
 from .blocks import AttnBlock, Conv2d, ResnetBlock, SpatialNorm, Upsample
-from .encoder import Level, Mid, chain_consumes, chain_step
+from .encoder import Level, Mid, chain_consumes, chain_step, trunk_call
 
 
 class Decoder(nn.Module):
@@ -37,18 +39,20 @@ class Decoder(nn.Module):
                  num_res_blocks: int = 2,
                  attn_resolutions: Sequence[int] = (32,),
                  resolution: int = 256, z_channels: int = 4,
-                 zq_channels: int = 4, dtype: torch.dtype = torch.float32):
+                 zq_channels: int = 4, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
         num_res = len(ch_mult)
         self.num_res = num_res
         self.dtype = dtype
+        self.remat = remat
         block_in = ch * ch_mult[-1]
         self.conv_in_coarse = Conv2d(z_channels, block_in, 3, dtype=dtype)
         self.conv_in = Conv2d(z_channels, block_in, 3, dtype=dtype)
         self.conv_in_fine = Conv2d(z_channels, block_in, 3, dtype=dtype)
-        self.mid_coarse = Mid(block_in, zq_channels, dtype)
-        self.mid = Mid(block_in, zq_channels, dtype)
-        self.mid_fine = Mid(block_in, zq_channels, dtype)
+        self.mid_coarse = Mid(block_in, zq_channels, dtype, dropout)
+        self.mid = Mid(block_in, zq_channels, dtype, dropout)
+        self.mid_fine = Mid(block_in, zq_channels, dtype, dropout)
 
         # attention schedule of the reference: curr_res starts at
         # resolution / 2^(num_res-1) and doubles per level, built in
@@ -62,7 +66,7 @@ class Decoder(nn.Module):
             attn_here = curr_res in attn_resolutions
             for _ in range(num_res_blocks + 1):
                 level.block.append(ResnetBlock(cur, block_out, zq_channels,
-                                               dtype))
+                                               dtype, dropout))
                 cur = block_out
                 if attn_here:
                     level.attn.append(AttnBlock(cur, zq_channels, dtype))
@@ -74,16 +78,20 @@ class Decoder(nn.Module):
         self.norm_out = SpatialNorm(cur, zq_channels, dtype)
         self.conv_out = Conv2d(cur, out_ch, 3, dtype=dtype)
 
-    def forward(self, z: torch.Tensor, zq: torch.Tensor, masks
+    def forward(self, z: torch.Tensor, zq: torch.Tensor, masks, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """z: [B, z_channels, Hl, Wl] post-quant-conv latent; zq: [B, D, Hl,
         Wl] quantized latent; masks: (coarse [B,Hl/4,Wl/4], medium
         [B,Hl/2,Wl/2], fine [B,Hl,Wl]). Returns [B, out_ch, 4Hl, 4Wl]."""
+        drop = dict(deterministic=deterministic, generator=generator)
+        use_chain = not self.remat and deterministic
         m_c, m_m, m_f = masks
         gate = lambda m: m.to(self.dtype)[:, None]          # [B, 1, h, w]
-        h_coarse = self.mid_coarse(self.conv_in_coarse(z), zq)
-        h_medium = self.mid(self.conv_in(z), zq)
-        h_fine = self.mid_fine(self.conv_in_fine(z), zq)
+        h_coarse = self.mid_coarse(self.conv_in_coarse(z), zq, **drop)
+        h_medium = self.mid(self.conv_in(z), zq, **drop)
+        h_fine = self.mid_fine(self.conv_in_fine(z), zq, **drop)
         h_coarse = avg_pool(h_coarse, 4)
         h_medium = avg_pool(h_medium, 2)
 
@@ -105,10 +113,11 @@ class Decoder(nn.Module):
             for i_block, block in enumerate(level.block):
                 consumes = (chain_consumes if i_block < last
                             else to_out if i_level == 0 else None)
-                h, mom = chain_step(block, h, zq, mom, not len(level.attn),
-                                    consumes)
+                h, mom = chain_step(block, h, zq, mom,
+                                    use_chain and not len(level.attn),
+                                    consumes, self.remat, **drop)
                 if len(level.attn):
-                    h = level.attn[i_block](h, zq)
+                    h = trunk_call(self.remat, level.attn[i_block], h, zq)
             if i_level != 0:
                 h = level.upsample(h)
                 mom = None

@@ -35,6 +35,7 @@ Weights are the port's: conv weights OIHW [Cout, Cin, 3, 3], the SpatialNorm
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import ctypes
 import operator
@@ -209,8 +210,24 @@ def unpack_weights(wpk: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
 # entry and takes no lock; a miss builds under _CACHE_LOCK, so that threads
 # launching at once build an entry once (the weakref callbacks only pop and
 # take no lock).
+#
+# Inside uncached() every call makes its value: a captured training program
+# computes its packs in the graph from the weights that its replays update
+# in place, where a cached pack would be read as it was at capture.
 _CACHE: dict = {}
 _CACHE_LOCK = threading.RLock()   # a make() may itself look up
+_UNCACHED = contextvars.ContextVar("control_gic_tpu_torch_uncached",
+                                   default=False)
+
+
+@contextlib.contextmanager
+def uncached():
+    """Inside this context `_cached` makes its value at every call."""
+    token = _UNCACHED.set(True)
+    try:
+        yield
+    finally:
+        _UNCACHED.reset(token)
 
 
 def _hit(key, tensors, versions):
@@ -222,6 +239,8 @@ def _hit(key, tensors, versions):
 
 
 def _cached(tensors: Sequence[torch.Tensor], extra: tuple, make):
+    if _UNCACHED.get():
+        return make()
     # on the launch path of every switched call: map and list
     # comprehensions, which cost a third of generator expressions
     key = (*map(id, tensors), *extra)

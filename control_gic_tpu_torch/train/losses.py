@@ -7,7 +7,9 @@
 
 The constants are the reference's effective ones (0.1 and 1.0). LPIPS is
 called with normalize=True on [-1, 1] training tensors, the reference's
-quirk, kept for training parity.
+quirk, kept for training parity. With adaptive_g_weight the adversarial
+term is also scaled by the reference's calculate_adaptive_weight
+(`adaptive_weight`).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ class LossConfig:
     # steps before the adversarial terms engage: the generator's g-term and
     # the discriminator's own loss are zeroed below this step
     disc_start: int = 0
-    # the reference's calculate_adaptive_weight; not ported yet (ROADMAP)
+    # scale the adversarial term by the reference's
+    # calculate_adaptive_weight (`adaptive_weight`)
     adaptive_g_weight: bool = False
 
 
@@ -45,14 +48,31 @@ def vanilla_d_loss(logits_real: torch.Tensor,
                   + torch.mean(F.softplus(logits_fake)))
 
 
+def adaptive_weight(nll_loss: torch.Tensor, g_loss: torch.Tensor,
+                    last_layer: torch.Tensor) -> torch.Tensor:
+    """The reference's calculate_adaptive_weight (JAX Trainer.
+    _adaptive_g_weight): ||d nll / dW|| / (||d g / dW|| + 1e-4), clamped to
+    [0, 1e4] and detached, with W the decoder's conv_out weight. Both
+    gradients come from the graph of the losses given (kept for the
+    generator's own backward), which is the forward JAX recomputes."""
+    g_nll, = torch.autograd.grad(nll_loss, last_layer, retain_graph=True)
+    g_g, = torch.autograd.grad(g_loss, last_layer, retain_graph=True)
+    w = torch.linalg.vector_norm(g_nll) / (torch.linalg.vector_norm(g_g)
+                                           + 1e-4)
+    return torch.clamp(w, 0.0, 1e4).detach()
+
+
 def generator_loss(x, x_rec, p_loss, logits_fake, codebook_loss,
-                   cfg: LossConfig, g_scale=1.0
+                   cfg: LossConfig, g_scale=1.0, last_layer=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(scalar loss, metrics). g_scale multiplies the adversarial term (the
-    disc_start warm-up factor)."""
+    disc_start warm-up factor); given `last_layer`, so does
+    adaptive_weight(nll, g, last_layer)."""
     rec_loss = torch.square(x.float() - x_rec.float())
     nll_loss = torch.mean(rec_loss + cfg.perceptual_weight * p_loss)
     g_loss = -torch.mean(logits_fake.float())
+    if last_layer is not None:
+        g_scale = g_scale * adaptive_weight(nll_loss, g_loss, last_layer)
     loss = (nll_loss + cfg.g_weight * g_scale * g_loss
             + cfg.codebook_weight * torch.mean(codebook_loss))
     metrics = {

@@ -8,12 +8,14 @@ once each per batch, gradients clipped by value at 1.0 first, EMA decay
 0.9999 with the (1+n)/(10+n) warm-up (LitEma). optax's
 chain(clip(1.0), adam(lr, b1, b2)) is `clip_grad_value_` then
 `torch.optim.Adam(eps=1e-8)`: both add eps to the square root of the
-bias-corrected second moment.
+bias-corrected second moment. On CUDA the optimizers are
+`capturable=True` (their step counts live on the device), so that a step
+can run as a CUDA graph; the CPU keeps the host-side step count.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Optional, Sequence, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,11 +40,14 @@ class TrainConfig:
     loss: LossConfig = LossConfig()
 
 
-def make_optimizer(params: Iterable[nn.Parameter],
-                   cfg: TrainConfig) -> torch.optim.Adam:
-    """Adam(lr, (b1, b2), eps 1e-8); `apply_gradients` clips before it."""
+def make_optimizer(params: Iterable[nn.Parameter], cfg: TrainConfig,
+                   capturable: bool = False) -> torch.optim.Adam:
+    """Adam(lr, (b1, b2), eps 1e-8); `apply_gradients` clips before it.
+    capturable=True (CUDA parameters only) keeps the step count on the
+    device, so that the step can be captured."""
     return torch.optim.Adam(list(params), lr=cfg.learning_rate,
-                            betas=(cfg.b1, cfg.b2), eps=1e-8)
+                            betas=(cfg.b1, cfg.b2), eps=1e-8,
+                            capturable=capturable)
 
 
 def apply_gradients(opt: torch.optim.Optimizer,
@@ -60,17 +65,33 @@ def apply_gradients(opt: torch.optim.Optimizer,
         p.grad = None
 
 
-@torch.no_grad()
-def ema_update(ema: Dict[str, torch.Tensor], named_params, num_updates: int,
-               decay: float) -> int:
-    """LitEma: with d = min(decay, (1+n)/(10+n)) in float32,
-    shadow -= (1 − d)·(shadow − param). Returns num_updates + 1."""
+def ema_weight(num_updates: int, decay: float) -> float:
+    """LitEma's 1 − d, with d = min(decay, (1+n)/(10+n)), computed on the
+    host in float32 (the result is exact in f32)."""
     n = np.float32(num_updates)
     d = min(np.float32(decay), (np.float32(1) + n) / (np.float32(10) + n))
-    step = float(np.float32(1) - d)          # exact in f32
-    for name, p in named_params:
-        s = ema[name]
-        s.sub_(step * (s - p.to(s.dtype)))
+    return float(np.float32(1) - d)
+
+
+@torch.no_grad()
+def ema_apply(shadows: List[torch.Tensor], params: List[torch.Tensor],
+              weight) -> None:
+    """shadow -= weight·(shadow − param), in place, for each pair; weight is
+    ema_weight's value as a float or as a 0-d f32 tensor on the device (a
+    captured step's input), which give the same f32 products."""
+    diffs = torch._foreach_sub(shadows, [p.to(s.dtype) for s, p in
+                                         zip(shadows, params)])
+    torch._foreach_mul_(diffs, weight)
+    torch._foreach_sub_(shadows, diffs)
+
+
+def ema_update(ema: Dict[str, torch.Tensor], named_params, num_updates: int,
+               decay: float) -> int:
+    """LitEma: shadow -= (1 − d)·(shadow − param) with
+    d = min(decay, (1+n)/(10+n)) in float32. Returns num_updates + 1."""
+    names, params = zip(*named_params)
+    ema_apply([ema[n] for n in names], list(params),
+              ema_weight(num_updates, decay))
     return num_updates + 1
 
 
@@ -97,6 +118,24 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return self.gen.codebook.device
+
+    def written_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a training step writes in place: the generator's and
+        the discriminator's parameters, the discriminator's running
+        statistics, both optimizers' state, the EMA shadow and the codebook
+        counters."""
+        opt_state = [t for opt in (self.opt_gen, self.opt_disc)
+                     for st in opt.state.values() for t in st.values()
+                     if torch.is_tensor(t)]
+        return [*self.gen.parameters(), *self.disc.parameters(),
+                *self.disc.buffers(), *opt_state, *self.ema.values(),
+                self.codebook_counts]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step reads or writes: written_tensors(), the
+        generator's buffers and the frozen LPIPS."""
+        return [*self.written_tensors(), *self.gen.buffers(),
+                *self.lpips.parameters(), *self.lpips.buffers()]
 
     def state_dict(self) -> dict:
         return {"step": self.step, "ema_num_updates": self.ema_num_updates,
@@ -141,6 +180,8 @@ def create_train_state(model_cfg: CGICConfig, train_cfg: TrainConfig,
     gen, disc, lpips = gen.to(dev), disc.to(dev).eval(), lpips.to(dev).eval()
     lpips.requires_grad_(False)
     ema = {n: p.detach().clone() for n, p in gen.named_parameters()}
+    capturable = dev.type == "cuda"
     return TrainState(gen, disc, lpips,
-                      make_optimizer(gen.parameters(), train_cfg),
-                      make_optimizer(disc.parameters(), train_cfg), ema)
+                      make_optimizer(gen.parameters(), train_cfg, capturable),
+                      make_optimizer(disc.parameters(), train_cfg,
+                                     capturable), ema)

@@ -48,12 +48,18 @@ fetches and event waits go on meanwhile.
 The key of a program: JAX's static key, the inputs' shapes and dtypes, the
 state that the port reads at call time and a capture would bake in (the
 engagement switches, `ops.plain_versions()`, norm_conv's engagement rule and
-`force_norm_conv`, the element and token gates), and a generation of the
+`force_norm_conv`, the element and token gates, PyTorch's deterministic
+and cuDNN flags), and a generation of the
 model's weights. A captured graph reads the weight packs its warm-up built,
 so an in-place change of the weights (`load_state_dict`, an EMA swap) must
 capture anew, not replay stale packs; JAX passes the weights as an argument
 and gets this for free. A new generation drops every program of the old
 one.
+
+The training steps (train/step.py) are programs too, through a backend and
+a pool of their own (`CUDAGraphs(side_stream_warm_up=True)`) and without a
+model: their replays are what changes the weights, so the weights'
+generation is not part of their key (it would capture at every step).
 """
 from __future__ import annotations
 
@@ -84,11 +90,16 @@ _COUNTERS = (attention.KERNEL_LAUNCHES, norm_conv.KERNEL_LAUNCHES,
 
 
 def call_state() -> tuple:
-    """What the dispatches read at call time, beyond the inputs."""
+    """What the dispatches read at call time, beyond the inputs; and
+    PyTorch's algorithm choice (deterministic algorithms, cuDNN's
+    deterministic and benchmark flags), which a capture bakes in too."""
     env = os.environ
+    cudnn = torch.backends.cudnn
     return (tuple(env.get(k) for k in SWITCHES), ops._PLAIN.get(),
             norm_conv._RULE.get(), norm_conv._FORCED.get(),
-            norm_conv.CHAIN_MIN_ELEMS, attention.FLASH_MIN_TOKENS)
+            norm_conv.CHAIN_MIN_ELEMS, attention.FLASH_MIN_TOKENS,
+            torch.are_deterministic_algorithms_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
 
 
 def _launches() -> List[dict]:
@@ -102,28 +113,62 @@ def _add_launches(delta: List[dict], sign: int = 1) -> None:
 
 
 def _map(fn, out):
-    """fn on a tensor, or on each tensor of a tuple or list of tensors."""
+    """fn on a tensor, or on each tensor of a tuple, list or dict of
+    tensors."""
     if isinstance(out, torch.Tensor):
         return fn(out)
+    if isinstance(out, dict):
+        return {k: fn(t) for k, t in out.items()}
     return type(out)(fn(t) for t in out)
 
 
 class CUDAGraphs:
     """The capture backend: a CUDA graph per program, captured on a side
     stream of `device` into one memory pool that all its captures share,
-    and replayed on the caller's current stream."""
+    and replayed on the caller's current stream. With
+    side_stream_warm_up (programs with a backward: the training step), the
+    warm-up runs on the side stream too, as PyTorch's whole-network capture
+    requires: the autograd engine runs a backward op on its forward op's
+    stream, and what the first run sets up per stream must be the
+    capture's."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 side_stream_warm_up: bool = False):
         self.device = device
+        self.side_stream_warm_up = side_stream_warm_up
         self._stream = None
         self._pool = None
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._stream
+
+    def warm_up(self, fn: Callable, inputs: list):
+        """fn(*inputs) run for real before its capture: on the caller's
+        stream, or on the side stream with side_stream_warm_up, after which
+        the allocator's cached blocks are released (empty_cache): a
+        training step's activations are a large share of the card's
+        memory, the capture needs as much again in its pool, and the
+        allocator cannot release cached blocks while a capture runs (it
+        fails instead)."""
+        if not self.side_stream_warm_up:
+            return fn(*inputs)
+        side = self._side_stream()
+        current = torch.cuda.current_stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.device(self.device), torch.cuda.stream(side):
+            out = fn(*inputs)
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return out
 
     def capture(self, fn: Callable, inputs: list):
         """(graph, static outputs) of fn(*inputs); raises if it cannot be
         captured (a host sync inside fn, for one)."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
+        self._side_stream()
         # no work of the static inputs' copies or of the warm-up still runs
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
@@ -170,7 +215,9 @@ class Program:
 
     def __call__(self, *inputs):
         if self.graph is None:
-            out = self.fn(*inputs)                      # the warm-up
+            warm_up = getattr(self.backend, "warm_up", None)
+            out = (self.fn(*inputs) if warm_up is None       # the warm-up
+                   else warm_up(self.fn, inputs))
             self.inputs = [x.clone() for x in inputs]
             before = _launches()
             try:
@@ -195,7 +242,7 @@ class Programs:
     the captures took: `captured` programs and `capture_s` seconds (warm-up
     included)."""
 
-    def __init__(self, model: torch.nn.Module, backend=None):
+    def __init__(self, model: Optional[torch.nn.Module], backend=None):
         self.model = model
         self.backend = backend
         self.lock = threading.RLock()
@@ -243,16 +290,24 @@ class Programs:
                 "capture_s": self.capture_s,
                 **(memory() if memory is not None else {})}
 
+    def clear(self) -> None:
+        """Drop every program."""
+        for c in self.caches:
+            c.clear()
+
     def _weights_generation(self) -> int:
         """A number that changes when a parameter or buffer of the model is
-        replaced or changed in place; a change drops every program."""
+        replaced or changed in place; a change drops every program. Without
+        a model (programs that take the weights' changes as their work, the
+        training steps) it stays 0."""
+        if self.model is None:
+            return 0
         stamp = tuple((t.data_ptr(), t._version)
                       for t in (*self.model.parameters(),
                                 *self.model.buffers()))
         if stamp != self._weights:
             if self._weights is not None:
-                for c in self.caches:
-                    c.clear()
+                self.clear()
             self._weights = stamp
             self._generation += 1
         return self._generation

@@ -1,8 +1,6 @@
 """The port's config loader against the JAX package's: `model.dropout` and
-`model.remat`, which JAX's CGICConfig keeps and the port's does not have
-yet, raise unless they are off (ROADMAP queue 1 item 12), where they used
-to be dropped without a word; off, and in both shipped YAMLs, the configs
-load as in JAX."""
+`model.remat` load as JAX's loader loads them (they were once dropped
+without a word), and so do both shipped YAMLs."""
 import os
 
 import pytest
@@ -28,13 +26,14 @@ def _yaml(tmp_path, **model):
                                         ({"remat": True}, "remat"),
                                         ({"dropout": 0.1, "remat": True},
                                          "dropout")])
-def test_unported_model_keys_raise(tmp_path, model, key):
+def test_model_keys_load_as_jax(tmp_path, model, key):
     path = _yaml(tmp_path, **model)
-    jcfg = j_load_config(path).model        # JAX keeps them
+    jcfg = j_load_config(path).model
+    cfg = load_config(path).model
     assert (jcfg.dropout, jcfg.remat) == (model.get("dropout", 0.0),
                                           model.get("remat", False))
-    with pytest.raises(NotImplementedError, match=f"{key}.*item 12"):
-        load_config(path)
+    assert (cfg.dropout, cfg.remat) == (jcfg.dropout, jcfg.remat)
+    assert getattr(cfg, key) == model[key]
 
 
 @pytest.mark.parametrize("model", [{"dropout": 0.0}, {"remat": False},

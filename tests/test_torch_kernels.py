@@ -898,3 +898,47 @@ def test_device_unpack_programs_match_eager(graph_codecs, monkeypatch, impl):
             np.testing.assert_array_equal(
                 out, codec.decode_batch(encs, out_uint8=True))
         assert launches == ([3, 3] if impl == "scan" else [0, 0])
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_captured_train_steps_match_eager(cuda, remat):
+    """Three small training steps across disc_start (adaptive weight on) as
+    CUDA graphs and eagerly, from the same seed, under deterministic
+    algorithms: the same metrics, parameters, EMA and Adam state to the
+    last bit, the same launches; two programs, one per side."""
+    import numpy as np
+
+    from control_gic_tpu_torch.models import CGICConfig
+    from control_gic_tpu_torch.train import (TrainConfig, Trainer,
+                                             create_train_state)
+    from control_gic_tpu_torch.train.losses import LossConfig
+    cfg = CGICConfig(n_embed=32, embed_dim=4, z_channels=4, ch=32,
+                     ch_mult=(1, 1, 2, 2, 2), num_res_blocks=1,
+                     attn_resolutions=(8,), resolution=64, remat=remat)
+    tcfg = TrainConfig(loss=LossConfig(disc_start=2, adaptive_g_weight=True))
+    xs = np.random.default_rng(44).uniform(-1, 1, (3, 2, 64, 64, 3)).astype(
+        np.float32)
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for graphs in (True, False):
+            trainer = Trainer(cfg, tcfg, graphs=graphs)
+            state = create_train_state(cfg, tcfg, device=cuda, seed=5)
+            before = _all_launches()
+            metrics = [trainer.train_step(state, x)[1] for x in xs]
+            torch.cuda.synchronize()
+            after = _all_launches()
+            runs.append((state, metrics, trainer.program_stats(),
+                         {k: after[k] - before[k] for k in after}))
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        torch.backends.cudnn.deterministic = old[1]
+    (gs, gm, gp, gl), (es, em, ep, el) = runs
+    assert gp["programs_captured"] == 2 and not ep and gl == el
+    for a, b in zip(gm, em):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    for a, b in zip(gs.written_tensors(), es.written_tensors()):
+        assert torch.equal(a, b)
