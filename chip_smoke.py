@@ -13,7 +13,10 @@ Phases, each printing a line of its own:
      the shapes of the main paths, with its time, the device time per launch
      (profiler), the host time per call of its wrapper, the plain version's,
      the library call's and the bound; the flash rows also with the share of
-     the bound, the forward's with its key splits;
+     the bound, the forward's with its key splits; at the H-sharded
+     codec's shapes (up to 196608 queries and keys) the forward is held on
+     three slices of 1024 query rows and its plain version timed in chunks
+     of queries;
   4. 256x256 path: the full-width codec (random weights from a seed, bf16)
      compresses 256x256 images through stream files in all 7 modes, with a
      receiver-only decode from the files and the kernel launch counts. The
@@ -91,7 +94,34 @@ Phases, each printing a line of its own:
      ms per image and upload bytes both ways); roundtrip_pipelined and
      compress_tiled_device (one 1344x2032 image, the default codec) with
      device_unpack=True against False, uint8 equal, under both decoders;
-     strict=True raising on a table with codes above 20 bits.
+     strict=True raising on a table with codes above 20 bits;
+ 14. data parallelism (f32, full width, 256x256; after phase 8): (a) the
+     Trainer under an NCCL group of one rank, as CUDA graphs (the
+     collectives captured) against graphs=False, 2 steps, both
+     deterministic, launches per step exact, and ms per step with the group
+     and without it in turns, of the Trainer and of the train CLI's loop;
+     (b) two processes (this script with --dp-worker) in a gloo group,
+     both on cuda:0, each stepping on 2 rows of a global batch of 4 with
+     graphs=False, against this process's 2 steps on the whole batch,
+     within DP_LIMITS: metrics, the step-1 gradients (relative L2), the
+     codebook counters and the running statistics; rank 0's rows stepped
+     alone without a group are a control that must fall outside every
+     limit; the flash key splits at both batch sizes; ms per step both ways and the
+     collectives' seconds per step; graphs=True under gloo raises; (c) the
+     train CLI under torch.distributed.run with one process, 2 steps;
+ 15. the H-sharded codec (full width; after phase 7): (a) the f32 model on a
+     512x768 image over 1, 2 and 4 shards on the card against the
+     single-device model under ops.plain_versions() (masks equal, indices
+     equal but for near-ties, the decode within 1e-3, one flash launch per
+     attention and shard); (b) the bf16 codec on one 1536x2048 image
+     through compress_spatial with 1 and 2 shards and decode_spatial from
+     the stream files, beside the single-device and the tiled codec (bpp,
+     PSNR, share of equal indices, exact flash launches and their shapes,
+     each one that phase 3 held, ms per image,
+     device busy and idle share, peak memory), then the CLI with --spatial
+     --mesh-devices 1 on its PNG; (c) compress_tiled with a 2-device mesh
+     on cuda:0 on phase 10's image: streams byte-identical to each tile
+     encoded alone (the mesh's batch), masks equal to mesh=None's.
 Phase 3 also holds the training kernels (the logsumexp forward, the dk/dv
 and dq backward), the SpatialNorm apply and the per-call norm+conv, and the
 gradients of the chain, the per-call op, the switched SpatialNorm and the
@@ -159,13 +189,36 @@ KERNELS = {
     },
 }
 # shapes the main paths give the attention kernel: (B, Tq, Tk, C, dtype);
-# 4096 tokens at 256x256, 24576 and 6144 at 512x768, 36864 on a 768-px tile
+# 4096 tokens at 256x256, 24576 and 6144 at 512x768, 36864 on a 768-px tile;
+# then the H-sharded codec's local queries against gathered keys (Tq =
+# Tk / 2: the 2-shard Kodak latent)
 ATTN_SHAPES = [(1, 4096, 4096, 512, "bfloat16"), (1, 4096, 4096, 256, "bfloat16"),
                (2, 4096, 4096, 512, "float32"), (1, 1024, 4096, 512, "bfloat16"),
                (1, 24576, 24576, 512, "bfloat16"), (1, 24576, 24576, 256, "bfloat16"),
                (1, 6144, 6144, 512, "bfloat16"), (1, 36864, 36864, 512, "bfloat16"),
-               (1, 36864, 36864, 256, "bfloat16")]
+               (1, 36864, 36864, 256, "bfloat16"),
+               (1, 12288, 24576, 512, "bfloat16"),
+               (1, 12288, 24576, 256, "bfloat16")]
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the H-sharded codec's flash calls on the 1536x2048 image of phase 15(b),
+# whose latent levels are /4 (196608 tokens: C 512 in the decoder's mids,
+# 256 in the encoder's fine head), /8 (49152, C 512) and /16 (12288, C
+# 512): one shard attends all the tokens, each of two shards half of them
+# to all; phase 15(b) fails on a shape that is not here or in ATTN_SHAPES
+SPATIAL_ATTN_SHAPES = [(1, 196608, 196608, 512, "bfloat16"),
+                       (1, 196608, 196608, 256, "bfloat16"),
+                       (1, 49152, 49152, 512, "bfloat16"),
+                       (1, 12288, 12288, 512, "bfloat16"),
+                       (1, 98304, 196608, 512, "bfloat16"),
+                       (1, 98304, 196608, 256, "bfloat16"),
+                       (1, 24576, 49152, 512, "bfloat16"),
+                       (1, 6144, 12288, 512, "bfloat16")]
+# at those shapes the plain version's scores over every query would not
+# fit: it is held on the first, a middle and the last CHECK_ROWS query
+# rows against all the keys, and timed over all the queries in chunks of
+# PLAIN_CHUNK rows (the rows of softmax attention are independent)
+CHECK_ROWS = 1024
+PLAIN_CHUNK = 4096
 # the chain kernel's calls on the 512x768 path: (norm form, H, W, Cin, Cout,
 # residual, emits moments, dtype); the f32 row is the parity path
 CHAIN_SHAPES = [("gn", 512, 768, 128, 128, True, True, "bfloat16"),
@@ -468,6 +521,7 @@ def phase_kernels(dev: dict) -> list:
                                  f"max abs err {err} > {ATTN_TOL[dt]}")
         rows.append(row)
         del q, k, v, out, ref
+    rows += spatial_attn_rows(dev, peaks, gen)
     rows += train_attn_rows(dev, peaks, gen)
     rows += chain_rows(dev, peaks, gen)
     rows += moment_rows(dev, peaks, gen)
@@ -475,6 +529,68 @@ def phase_kernels(dev: dict) -> list:
     rows += norm_conv_rows(dev, peaks, gen)
     chain_grad_checks(gen)
     switched_grad_checks(gen)
+    return rows
+
+
+def spatial_attn_rows(dev: dict, peaks, gen) -> list:
+    """The flash forward at SPATIAL_ATTN_SHAPES against its plain version
+    on query slices (CHECK_ROWS), with the kernel's, the chunked plain
+    version's and SDPA's times; each timed over as many calls as fit in
+    about a second and a half (at least one)."""
+    import torch
+    import torch.nn.functional as F
+
+    from control_gic_tpu_torch.ops import attention as A
+
+    def plain(q, k, v):
+        return torch.cat([A.attention_reference(q[:, i:i + PLAIN_CHUNK], k, v)
+                          for i in range(0, q.shape[1], PLAIN_CHUNK)], 1)
+
+    def timed(fn):
+        one = cuda_time_ms(fn, iters=1, warmup=1)
+        reps = max(1, min(10, int(1500.0 / max(one, 1e-3))))
+        return cuda_time_ms(fn, iters=reps, warmup=0), reps
+
+    rows = []
+    for b, tq, tk, c, dt in SPATIAL_ATTN_SHAPES:
+        dtype = getattr(torch, dt)
+        q = (2 * torch.randn(b, tq, c, device="cuda", generator=gen)).to(dtype)
+        k = torch.randn(b, tk, c, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, tk, c, device="cuda", generator=gen).to(dtype)
+        out = A.flash_attention(q, k, v)
+        n = min(CHECK_ROWS, tq)
+        slices = [slice(0, n), slice((tq - n) // 2, (tq + n) // 2),
+                  slice(tq - n, tq)]
+        err = max((out[:, s].float() - A.attention_reference(
+            q[:, s], k, v).float()).abs().max().item() for s in slices)
+        ms, reps = timed(lambda: A.flash_attention(q, k, v))
+        dev_us = device_us_per_launch(lambda: A.flash_attention(q, k, v),
+                                      n=min(5, reps))
+        plain_ms, _ = timed(lambda: plain(q, k, v))
+        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+        backend = sdpa_backend(q4, k4, v4)
+        lib_ms = (None if backend == "MATH" else      # [Tq, Tk] scores
+                  timed(lambda: F.scaled_dot_product_attention(q4, k4,
+                                                               v4))[0])
+        bms, bound_by = attn_bound_ms(b, tq, tk, c, dt, peaks)
+        row = {"kernel": "flash_attn_fwd", "shape": [b, tq, tk, c],
+               "dtype": dt, "max_abs_err": err, "tol": ATTN_TOL[dt],
+               "checked_query_rows": [[s.start, s.stop] for s in slices],
+               "ms": ms, "timed_calls": reps, "device_us": dev_us,
+               "bound_share": bms / ms, "host_us": None,
+               "key_splits": flash_splits(b, tq, tk, c, dt),
+               "plain_ms": plain_ms, "plain_chunk_rows": PLAIN_CHUNK,
+               "library_ms": lib_ms, "library_backend": backend,
+               "bound_ms": bms, "bound_by": bound_by,
+               "card": dev["nvidia_smi"]}
+        log("kernel flash_attn_fwd", **row)
+        if not err <= ATTN_TOL[dt]:
+            raise AssertionError(f"flash_attn_fwd disagrees with its plain "
+                                 f"version at {row['shape']} {dt}: "
+                                 f"max abs err {err} > {ATTN_TOL[dt]}")
+        rows.append(row)
+        del q, k, v, q4, k4, v4, out
+        release()
     return rows
 
 
@@ -2329,18 +2445,19 @@ def timed_pair(graph, eager, batches) -> dict:
 
 
 def graphs_vs_eager(label: str, cfg, tcfg, batches, expected=None,
-                    state=None, trainer=None):
+                    state=None, trainer=None, group=None):
     """The same steps from the same seed with CUDA graphs and with
     graphs=False, both deterministic: launches per step exact (`expected`;
     None: PER_TRAIN_STEP), values compared (compare_runs). Takes an
-    existing (trainer, state) for the graph side if given. Returns
+    existing (trainer, state) for the graph side if given; both trainers
+    take `group` (a process group) if given. Returns
     ((trainer, state, recorder, memory_of's figures) with graphs, the same
     eagerly, the comparison)."""
     from control_gic_tpu_torch.train import Trainer, create_train_state
     if state is None:
-        trainer = Trainer(cfg, tcfg)
+        trainer = Trainer(cfg, tcfg, group=group)
         state = create_train_state(cfg, tcfg, device="cuda", seed=0)
-    eager = Trainer(cfg, tcfg, graphs=False)
+    eager = Trainer(cfg, tcfg, graphs=False, group=group)
     eager_state = create_train_state(cfg, tcfg, device="cuda", seed=0)
     with deterministic():
         rec_g, peak_g = run_steps(trainer, state, batches)
@@ -2616,12 +2733,7 @@ def phase_train_cli(workdir: str) -> None:
     if importlib.util.find_spec("PIL") is None:
         log("train cli", skipped="PIL is not installed on this machine")
         return
-    from PIL import Image
-    pngs = os.path.join(workdir, "train_pngs")
-    os.makedirs(pngs)
-    for i in range(4):
-        Image.fromarray((make_image(300 + i) * 255).astype("uint8")).save(
-            os.path.join(pngs, f"{i}.png"))
+    pngs = _train_pngs(workdir)
     ckpt, logs = os.path.join(workdir, "cli_ckpt"), os.path.join(workdir,
                                                                  "cli_logs")
     t0 = time.perf_counter()
@@ -2644,6 +2756,739 @@ def phase_train_cli(workdir: str) -> None:
                                                 "train/discloss")},
         images=sorted(os.listdir(os.path.join(logs, "images"))),
         seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------- phase 14
+
+DP_STEPS = 2
+DP_GLOBAL_BATCH = 4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_batches():
+    """DP_STEPS global batches of DP_GLOBAL_BATCH 256x256 images."""
+    import numpy as np
+    return [np.concatenate(train_batches(800 + 8 * i, 2))
+            for i in range(DP_STEPS)]
+
+
+def _dp_config():
+    from control_gic_tpu_torch.models import CGICConfig
+    from control_gic_tpu_torch.train import TrainConfig
+    return CGICConfig(dtype="float32"), TrainConfig()
+
+
+@contextlib.contextmanager
+def recorded_grads():
+    """The gradients the training step hands to its optimizers (after the
+    all-reduce, before the clip), first step only: [generator's,
+    discriminator's]."""
+    import torch
+
+    from control_gic_tpu_torch.train import step as step_mod
+    grads, orig = [], step_mod.apply_gradients
+
+    def record(opt, params, g, cfg):
+        if len(grads) < 2:
+            grads.append([torch.zeros_like(p) if t is None
+                          else t.detach().clone() for p, t in zip(params, g)])
+        orig(opt, params, g, cfg)
+
+    step_mod.apply_gradients = record
+    try:
+        yield grads
+    finally:
+        step_mod.apply_gradients = orig
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host seconds in torch.distributed's all_reduce and all_gather (each
+    call synchronised before and after), added up in the yielded list."""
+    import torch
+    import torch.distributed as dist
+    spent, origs = [0.0], (dist.all_reduce, dist.all_gather)
+
+    def timed(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    dist.all_reduce, dist.all_gather = (timed(f) for f in origs)
+    try:
+        yield spent
+    finally:
+        dist.all_reduce, dist.all_gather = origs
+
+
+def _dp_result(rec, counts, state, grads) -> dict:
+    """A run's metrics, step times, launches, codebook counters after each
+    step, running statistics and step-1 gradients, on the host."""
+    return {"metrics": rec.metrics, "ms": rec.ms, "launches": rec.launches,
+            "counts": counts,
+            "running": {k: v.cpu() for k, v in state.disc.state_dict().items()
+                        if "running" in k},
+            "grads": [[g.cpu() for g in gs] for gs in grads]}
+
+
+# phase 14(b) runs as a user runs it ("kernels"); the witnesses of
+# tools/torch_dp_gap.py run the reference and the ranks under
+# ops.plain_versions() ("plain"), with cuDNN off ("nocudnn": PyTorch's own
+# convolutions, one GEMM per sample) or both ("nocudnn_plain")
+
+
+@contextlib.contextmanager
+def _dp_mode(mode: str):
+    """The context a run of `mode` steps in."""
+    import torch
+
+    from control_gic_tpu_torch import ops
+    with contextlib.ExitStack() as stack:
+        if "plain" in mode:
+            stack.enter_context(ops.plain_versions())
+        if "nocudnn" in mode:
+            stack.enter_context(torch.backends.cudnn.flags(enabled=False))
+        yield
+
+
+def dp_worker(rank: int, port: int, out: str, mode: str) -> None:
+    """One rank of phase 14(b): a gloo group of 2 on cuda:0, rows
+    [2r, 2r + 2) of each global batch, graphs=False, in `mode`;
+    writes its metrics, step times, collective seconds, counters, running
+    statistics and (rank 0) the step-1 gradients to out/rank<r>.pt."""
+    import torch
+
+    from control_gic_tpu_torch.parallel.multihost import initialize_multihost
+    from control_gic_tpu_torch.train import Trainer, create_train_state
+    from control_gic_tpu_torch.utils.device import use_fp32_pipes
+
+    use_fp32_pipes()
+    group = initialize_multihost(f"localhost:{port}", 2, rank,
+                                 backend="gloo", device="cuda:0")
+    cfg, tcfg = _dp_config()
+    try:
+        Trainer(cfg, tcfg, graphs=True, group=group)
+        graphs_raise = False
+    except ValueError:
+        graphs_raise = True
+    trainer = Trainer(cfg, tcfg, graphs=False, group=group)
+    state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+    rec, n = StepRecorder(trainer), DP_GLOBAL_BATCH // 2
+    with recorded_grads() as grads, timed_collectives() as spent, \
+            _dp_mode(mode):
+        counts = [rec.train_step(state, x[rank * n:(rank + 1) * n])[0]
+                  .codebook_counts.cpu().clone() for x in dp_batches()]
+    res = _dp_result(rec, counts, state, grads if rank == 0 else [])
+    res.update(collective_s_per_step=spent[0] / DP_STEPS,
+               graphs_raise=graphs_raise)
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+LOOP_STEPS = 8
+
+
+def loop_ms_per_step(workdir: str, grouped, alone) -> dict:
+    """ms per step of cli/train.py's train_loop (host clock, one sync at
+    the end) over LOOP_STEPS steps from step 100 (no image log, no metric
+    log, no checkpoint in between; the closing checkpoint left out), for
+    the (trainer, state) under the group and the one without, in turns,
+    3 times each; the first turn is a warm-up."""
+    import torch
+
+    from control_gic_tpu_torch.cli import train as train_cli
+
+    out, save = {"group": [], "no_group": []}, train_cli._save
+    train_cli._save = lambda *a, **kw: None
+    try:
+        for turn in range(3):
+            for name, (trainer, state) in (("group", grouped),
+                                           ("no_group", alone)):
+                state.step = 100
+                args = _loop_args(workdir, 100 + LOOP_STEPS, f"loop_{name}")
+                args.log_every = 10 ** 6
+                batches = train_batches(900 + turn, LOOP_STEPS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_cli.train_loop(args, trainer, state, batches)
+                torch.cuda.synchronize()
+                if turn:
+                    out[name].append(1e3 * (time.perf_counter() - t0)
+                                     / LOOP_STEPS)
+    finally:
+        train_cli._save = save
+    return out
+
+
+def _dp_nccl_one_rank(dev: dict, workdir: str) -> None:
+    """Phase 14(a): the Trainer under an NCCL group of one rank, as CUDA
+    graphs (the collectives captured) against graphs=False, both
+    deterministic: launches per step exact, losses 1e-6 relative, state
+    1e-5 of each tensor's max (and whether every value is equal); then ms
+    per step with the group and without it, in turns, of the Trainer and
+    of the train CLI's loop (loop_ms_per_step)."""
+    import torch.distributed as dist
+
+    from control_gic_tpu_torch.parallel.multihost import initialize_multihost
+    from control_gic_tpu_torch.train import Trainer, create_train_state
+
+    t0 = time.perf_counter()
+    cfg, tcfg = _dp_config()
+    group = initialize_multihost(f"localhost:{free_port()}", 1, 0,
+                                 backend="nccl", device="cuda:0")
+    try:
+        reset_launches()
+        (tr_g, st_g, rec_g, peak_g), (tr_e, st_e, rec_e, _), agree = \
+            graphs_vs_eager("f32 nccl group of 1", cfg, tcfg,
+                            train_batches(100, DP_STEPS), group=group)
+        del tr_e, st_e, rec_e
+        release()
+        plain = Trainer(cfg, tcfg)
+        plain_state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+        rec_grp, rec_plain = StepRecorder(tr_g), StepRecorder(plain)
+        for x in train_batches(500, 4):
+            rec_grp.train_step(st_g, x)
+            rec_plain.train_step(plain_state, x)
+        loop = loop_ms_per_step(workdir, (tr_g, st_g), (plain, plain_state))
+        mean = lambda ms: sum(ms[1:]) / len(ms[1:])
+        log("data parallel nccl group of 1", steps=DP_STEPS,
+            step_ms=rec_g.ms, launches_per_step=rec_g.launches[0],
+            graphs_vs_eager=agree, memory=peak_g,
+            programs=tr_g.program_stats(),
+            group_ms=rec_grp.ms, no_group_ms=rec_plain.ms,
+            group_ms_mean=mean(rec_grp.ms),
+            no_group_ms_mean=mean(rec_plain.ms),
+            train_loop_ms_per_step=loop, card=dev["nvidia_smi"],
+            seconds=time.perf_counter() - t0)
+        del tr_g, st_g, rec_g, plain, plain_state, rec_grp, rec_plain
+        release()
+    finally:
+        dist.destroy_process_group()
+
+
+def _grad_gap(got, want) -> dict:
+    """The step-1 gradients of a run against the reference's: each tensor's
+    error over its max, the worst three (part, index: 0 the generator, 1
+    the discriminator), the relative L2 error over the whole model and
+    over each part."""
+    num, den, per = [0.0, 0.0], [0.0, 0.0], []
+    for part, (gs, ws) in enumerate(zip(got, want)):
+        for i, (g, w) in enumerate(zip(gs, ws)):
+            g, w = g.to(w.device), w
+            per.append(((g - w).abs().max().item()
+                        / max(w.abs().max().item(), 1e-30), part, i))
+            num[part] += (g.double() - w.double()).square().sum().item()
+            den[part] += w.double().square().sum().item()
+    per.sort(reverse=True)
+    return {"worst_rel": per[:3], "l2_rel": (sum(num) / sum(den)) ** 0.5,
+            "l2_rel_by_part": [(n / max(d, 1e-300)) ** 0.5
+                               for n, d in zip(num, den)]}
+
+
+def dp_reference(mode: str, rows=slice(None)) -> dict:
+    """This process's DP_STEPS steps on `rows` of each global batch, with
+    no group, graphs=False, in `mode`."""
+    from control_gic_tpu_torch.train import Trainer, create_train_state
+
+    cfg, tcfg = _dp_config()
+    trainer = Trainer(cfg, tcfg, graphs=False)
+    state = create_train_state(cfg, tcfg, device="cuda", seed=0)
+    rec = StepRecorder(trainer)
+    with recorded_grads() as grads, _dp_mode(mode):
+        counts = [rec.train_step(state, x[rows])[0].codebook_counts.cpu()
+                  .clone() for x in dp_batches()]
+    res = _dp_result(rec, counts, state, grads)
+    del trainer, state, rec, grads
+    release()
+    return res
+
+
+def dp_ranks(workdir: str, mode: str) -> list:
+    """Two ranks (this script with --dp-worker) in `mode`: their results."""
+    import torch
+
+    out = os.path.join(workdir, f"dp_{mode}")
+    os.makedirs(out)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(port), out, mode], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel rank failed "
+                                 f"({p.returncode}):\n{text[-3000:]}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+
+
+def dp_gap(runs: list, want: dict) -> dict:
+    """How far runs (the ranks, or one run) are from the reference `want`:
+    the worst metric error over max(1, |value|), the step-1 gradients
+    (_grad_gap; the first run's), the share of codebook counts moved after
+    each step and whether they are equal, and the running statistics'
+    worst error over each tensor's max."""
+    import torch
+
+    def moved(step):
+        w = want["counts"][step]
+        return max((r["counts"][step] - w).abs().sum().item() / 2
+                   / w.sum().item() for r in runs)
+
+    return dict(
+        metric_worst_err=max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                             for r in runs for g, w in zip(r["metrics"],
+                                                           want["metrics"])
+                             for k in w),
+        grads=_grad_gap(runs[0]["grads"], want["grads"]),
+        counts_equal=all(torch.equal(r["counts"][-1], want["counts"][-1])
+                         for r in runs),
+        counts_totals_equal=all(r["counts"][-1].sum()
+                                == want["counts"][-1].sum() for r in runs),
+        counts_moved_share=moved(-1),
+        counts_moved_share_per_step=[moved(i) for i in range(DP_STEPS)],
+        running_worst_rel_err=max(((r["running"][k] - w).abs().max()
+                                   / w.abs().max()).item()
+                                  for r in runs
+                                  for k, w in want["running"].items()))
+
+
+def _dp_timing(ranks: list, want: dict) -> dict:
+    mean = lambda ms: sum(ms[1:]) / len(ms[1:])
+    return dict(one_process_ms=want["ms"], rank_ms=[r["ms"] for r in ranks],
+                one_process_ms_mean=mean(want["ms"]),
+                rank_ms_mean=[mean(r["ms"]) for r in ranks],
+                collective_s_per_step=[r["collective_s_per_step"]
+                                       for r in ranks])
+
+
+# phase 14(b)'s limits on the gap of the ranks to one process: each about
+# 3-5 times the sound runs' readings on the H100 and far below the
+# control's (PERF.md, phase 14(b))
+DP_LIMITS = dict(metric=1e-3, grad_l2=5e-3, counts_moved=1e-3,
+                 running=5e-4)
+
+
+def _dp_within(gap: dict, lim: dict) -> bool:
+    return (gap["metric_worst_err"] <= lim["metric"]
+            and gap["grads"]["l2_rel"] <= lim["grad_l2"]
+            and gap["counts_totals_equal"]
+            and gap["counts_moved_share"] <= lim["counts_moved"]
+            and gap["running_worst_rel_err"] <= lim["running"])
+
+
+def _dp_two_ranks(dev: dict, workdir: str) -> dict:
+    """Phase 14(b): two processes in a gloo group on cuda:0, each stepping
+    on 2 rows of a global batch of 4 (graphs=False), against this process's
+    steps on the whole batch. On the card the two sides do not round alike
+    (the gap stays near 1e-4 in the gradients with plain attention and
+    with cuDNN off, hundreds of times the reference's own run-to-run gap;
+    tools/torch_dp_gap.py), and a VQ near-tie may flip: the ranks are held
+    within DP_LIMITS (metrics over max(1, |value|); the step-1 gradients
+    in the relative L2 norm over the whole model, since a tensor's own max
+    is no yardstick where its true gradient is 0, a key bias; the
+    counters' totals equal and the share moved; the running statistics
+    over each tensor's max). The control, rank 0's rows stepped alone
+    without a group (local thresholds and statistics, half the batch),
+    must be outside every limit. Returns the launches of the ranks'
+    steps."""
+    t0 = time.perf_counter()
+    want = dp_reference("kernels")
+    control = dp_gap([dp_reference("kernels", slice(0, 2))], want)
+    ranks = dp_ranks(workdir, "kernels")
+    gap, lim = dp_gap(ranks, want), DP_LIMITS
+    launches = ranks[0]["launches"]
+    res = dict(global_batch=DP_GLOBAL_BATCH, ranks=2, steps=DP_STEPS,
+               **gap, limits=lim, within=_dp_within(gap, lim),
+               control_rows_alone=control,
+               control_outside_every_limit=(
+                   control["metric_worst_err"] > lim["metric"]
+                   and control["grads"]["l2_rel"] > lim["grad_l2"]
+                   and control["counts_moved_share"] > lim["counts_moved"]
+                   and control["running_worst_rel_err"] > lim["running"]),
+               flash_key_splits={f"batch_{b}": {c: flash_splits(
+                   b, 4096, 4096, c, "float32") for c in (256, 512)}
+                   for b in (DP_GLOBAL_BATCH // 2, DP_GLOBAL_BATCH)},
+               rank_launches_per_step=launches,
+               graphs_under_gloo_raise=[r["graphs_raise"] for r in ranks],
+               **_dp_timing(ranks, want), card=dev["nvidia_smi"],
+               seconds=time.perf_counter() - t0)
+    log("data parallel 2 ranks vs 1 process", **res)
+    if not (res["within"] and res["control_outside_every_limit"]
+            and all(step == PER_TRAIN_STEP for r in ranks
+                    for step in r["launches"])
+            and all(res["graphs_under_gloo_raise"])):
+        raise AssertionError(f"2 ranks differ from one process: {res}")
+    return launches
+
+
+def _train_pngs(workdir: str) -> str:
+    """Four 256x256 PNGs for the train CLI (PIL)."""
+    from PIL import Image
+    pngs = os.path.join(workdir, "train_pngs")
+    if not os.path.isdir(pngs):
+        os.makedirs(pngs)
+        for i in range(4):
+            Image.fromarray((make_image(300 + i) * 255).astype("uint8")).save(
+                os.path.join(pngs, f"{i}.png"))
+    return pngs
+
+
+def _dp_cli(workdir: str) -> None:
+    """Phase 14(c): the train CLI under torch.distributed.run with one
+    process (an NCCL group of one rank), 2 steps."""
+    import importlib.util
+    import json as _json
+
+    from control_gic_tpu_torch.utils.checkpoint import latest_step
+
+    if importlib.util.find_spec("PIL") is None:
+        log("data parallel cli", skipped="PIL is not installed")
+        return
+    pngs = _train_pngs(workdir)
+    ckpt, logs = (os.path.join(workdir, "dp_cli_ckpt"),
+                  os.path.join(workdir, "dp_cli_logs"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc_per_node", "1", "--master_port", str(free_port()),
+         "-m", "control_gic_tpu_torch.cli.train", "--train-dir", pngs,
+         "--steps", "2", "--batch-size", "2", "--log-every", "1",
+         "--ckpt-dir", ckpt, "--log-dir", logs],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train CLI failed ({proc.returncode})"
+                             f":\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        lines = [_json.loads(line) for line in f]
+    summary = [line for line in proc.stdout.splitlines()
+               if line.startswith("process ")]
+    if latest_step(ckpt) != 2 or len(lines) != 2 or "nccl" not in "".join(
+            summary):
+        raise AssertionError(f"torchrun train CLI: checkpoint "
+                             f"{latest_step(ckpt)}, {len(lines)} metric "
+                             f"lines, {summary}")
+    log("data parallel cli", launcher="torch.distributed.run, 1 process",
+        group=summary, steps=2, checkpoint_step=2,
+        last_metrics={k: lines[-1][k] for k in ("train/aeloss",
+                                                "train/discloss")},
+        seconds=time.perf_counter() - t0)
+
+
+def phase_data_parallel(dev: dict, workdir: str) -> dict:
+    """Phase 14: data-parallel training at full width in f32, 256x256.
+    Returns the kernel launches of the 2-rank run's steps (rank 0)."""
+    release()
+    t0 = time.perf_counter()
+    _dp_nccl_one_rank(dev, workdir)
+    launches = _dp_two_ranks(dev, workdir)
+    _dp_cli(workdir)
+    log("data parallel", seconds=time.perf_counter() - t0)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 15
+
+SPATIAL_IMAGE = (1536, 2048)
+SPATIAL_SHARDS_F32 = (1, 2, 4)
+SPATIAL_SHARDS = (1, 2)
+
+
+def cuda_mesh(n: int):
+    """A mesh of n shards on cuda:0."""
+    from control_gic_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(n, devices=["cuda:0"] * n)
+
+
+def _spatial_f32(dev: dict) -> None:
+    """Phase 15(a): the f32 model on a 512x768 image, H-sharded over 1, 2
+    and 4 shards on the card (kernels) against the single-device model
+    under ops.plain_versions(): masks equal, VQ indices equal but for
+    near-ties, the decode of the same indices within 1e-3 (absolute and
+    relative); one flash launch per attention and shard."""
+    import torch
+
+    from control_gic_tpu_torch.models import CGIC, CGICConfig
+    from control_gic_tpu_torch.ops import plain_versions
+    from control_gic_tpu_torch.ops.quantize import codebook_gather, vq_lookup
+    from control_gic_tpu_torch.parallel.halo import join_rows, split_rows
+    from control_gic_tpu_torch.parallel.spatial_decoder import \
+        decode_spatial_sharded
+    from control_gic_tpu_torch.parallel.spatial_encoder import latent_shards
+
+    t0 = time.perf_counter()
+    model = CGIC(CGICConfig(dtype="float32"),
+                 generator=torch.Generator().manual_seed(1)).cuda().eval()
+    img = make_image(21, KODAK)
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].contiguous().cuda()
+    rc, rm = RATIOS[0]
+    cb = model.codebook.float()
+    with torch.no_grad(), plain_versions():
+        router = model.route(x, rc, rm)
+        lat_p = model.latent(x, router)
+        idx_p = vq_lookup(lat_p.float(), cb)
+        rec_p = model.decode_indices(idx_p, router.masks)
+        zq = codebook_gather(idx_p, model.codebook)
+        z = model.post_quant_conv(zq)
+    # both latents' nearest codes under one formula (kernels_vs_plain's)
+    dist = lambda lat: ((lat[..., None] - cb.t()[None, :, None, None]) ** 2
+                        ).sum(1)
+    d_p = dist(lat_p.float())
+    i_p = d_p.argmin(-1)
+    rows, per_shard = [], None
+    for n in SPATIAL_SHARDS_F32:
+        mesh = cuda_mesh(n)
+        devices = mesh.axis_devices("data")
+        reset_launches()
+        with torch.no_grad():
+            lat, *masks = latent_shards(split_rows(x, devices),
+                                        [model.encoder] * n,
+                                        [model.quant_conv] * n, rc, rm)
+            lat = join_rows(lat)
+            masks = [join_rows(m, 1) for m in masks]
+            rec = decode_spatial_sharded(mesh, model.decoder, z, zq,
+                                         router.masks)
+        torch.cuda.synchronize()
+        flash = read_launches()["flash_attn_fwd"]
+        per_shard = flash if n == 1 else per_shard
+        err = (lat - lat_p).abs().max().item()
+        i_s = dist(lat.float()).argmin(-1)
+        d_min = d_p.gather(-1, i_p[..., None])[..., 0]
+        gap = d_p.gather(-1, i_s[..., None])[..., 0] - d_min
+        # a latent error moves a gap by at most 16 max|err| max|c|, and
+        # the f32 sums of squares round at ~4 ulp of the distance
+        near = 16 * err * cb.abs().max().item() + 2.0 ** -21 * d_min + 1e-7
+        diff = i_s != i_p
+        row = dict(shards=n, masks_equal=all(
+            torch.equal(a, b) for a, b in zip(masks, router.masks)),
+            latent_max_abs_err=err,
+            latent_max_abs=lat_p.abs().max().item(),
+            indices_differing=int(diff.sum()),
+            differing_gaps=gap[diff][:6].tolist(),
+            differing_near=near[diff][:6].tolist(),
+            indices_differing_beyond_ties=int((diff & (gap > near)).sum()),
+            recon_max_abs_err=(rec - rec_p).abs().max().item(),
+            recon_rel_err=((rec - rec_p).abs().max()
+                           / rec_p.abs().max()).item(),
+            flash_launches=flash)
+        rows.append(row)
+        if not (row["masks_equal"] and not row["indices_differing_beyond_ties"]
+                and row["recon_max_abs_err"] <= 1e-3
+                and row["recon_rel_err"] <= 1e-3 and flash
+                and flash == n * per_shard):
+            raise AssertionError(f"sharded f32 at {n} shards: {row}")
+    log("spatial f32 vs single device (plain)", image=list(KODAK),
+        tol_recon=1e-3, rows=rows, seconds=time.perf_counter() - t0)
+
+
+def _psnr(rec, img) -> float:
+    import numpy as np
+    mse = float(np.mean((np.clip(rec, 0, 1) - img) ** 2))
+    return float(10 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+@contextlib.contextmanager
+def flash_shapes():
+    """The (B, Tq, Tk, C) and dtype of every flash forward launch inside,
+    in a yielded set."""
+    from control_gic_tpu_torch.ops import attention as A
+    seen, orig = set(), A.flash_attention
+
+    def record(q, k, v, *a, **kw):
+        seen.add(((*q.shape[:2], k.shape[1], q.shape[2]),
+                  str(q.dtype).replace("torch.", "")))
+        return orig(q, k, v, *a, **kw)
+
+    A.flash_attention = record
+    try:
+        yield seen
+    finally:
+        A.flash_attention = orig
+
+
+def _spatial_bf16(dev: dict, codec, workdir: str, held) -> dict:
+    """Phase 15(b): the bf16 codec on one 1536x2048 image through
+    compress_spatial with 1 and 2 shards on the card and decode_spatial
+    from the stream files, beside the single-device codec and the tiled
+    codec on the same image, then the CLI with --spatial --mesh-devices 1
+    on its PNG. Every flash forward shape of the sharded round trips must
+    be one that phase 3 held against the plain version (`held`). Returns
+    the flash launches of the 2-shard round trip."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from control_gic_tpu_torch.cli import infer_highres
+    from control_gic_tpu_torch.codec import EncodedImage
+    from control_gic_tpu_torch.models.blocks import AttnBlock
+    from control_gic_tpu_torch.parallel.spatial_codec import (
+        compress_spatial, decode_spatial)
+    from control_gic_tpu_torch.parallel.tiling import compress_tiled
+
+    t0 = time.perf_counter()
+    img = make_image(31, SPATIAL_IMAGE)
+    rc, rm = RATIOS[0]
+    attns = sum(isinstance(m, AttnBlock) for m in codec.model.modules())
+    # the single-device and the tiled codec: a first call captures their
+    # programs, the second is timed
+    timed = []
+    for run in (lambda: codec.decode(codec.encode(img, rc, rm)),
+                lambda: compress_tiled(codec, img, rc, rm, tile=TILE)):
+        run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        timed.append(1e3 * (time.perf_counter() - t1))
+    solo = codec.encode(img, rc, rm)
+    rec_solo = codec.decode(solo)
+    ind_solo, masks_solo = codec._rebuild(solo)
+    rec_t, bpp_t, _ = compress_tiled(codec, img, rc, rm, tile=TILE)
+    res = dict(image=list(SPATIAL_IMAGE), attention_blocks=attns,
+               single_device=dict(bpp=solo.bpp, psnr=_psnr(rec_solo, img),
+                                  ms_per_image=timed[0]),
+               tiled=dict(tile=TILE, bpp=bpp_t, psnr=_psnr(rec_t, img),
+                          ms_per_image=timed[1]))
+    launches = None
+    for n in SPATIAL_SHARDS:
+        mesh = cuda_mesh(n)
+        compress_spatial(codec, img, rc, rm, mesh)        # warm-up
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t1 = time.perf_counter()
+        rec, bpp, enc = compress_spatial(codec, img, rc, rm, mesh)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1)
+        counts = read_launches()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        d = os.path.join(workdir, f"spatial_{n}")
+        enc.write(d)
+        back = decode_spatial(codec, EncodedImage.read(
+            d, enc.mode, enc.latent_hw, enc.image_hw), mesh)
+        ind, masks = codec._rebuild(enc)
+        with flash_shapes() as shapes:
+            wall_us, busy, kernels, _ = device_profile(
+                lambda: compress_spatial(codec, img, rc, rm, mesh))
+        unheld = sorted(shapes - held)
+        row = dict(bpp=bpp, psnr=_psnr(rec, img), ms_per_image=ms,
+                   peak_gib=peak, flash_launches=counts["flash_attn_fwd"],
+                   flash_shapes=sorted(shapes), flash_shapes_unheld=unheld,
+                   masks_equal_single_device=all(
+                       np.array_equal(a, b) for a, b in zip(masks,
+                                                            masks_solo)),
+                   indices_equal_share=float(np.mean(ind == ind_solo)),
+                   files_decode_max_abs_err=float(np.abs(back - rec).max()),
+                   profile_wall_ms=wall_us / 1e3,
+                   device_busy_ms=None if busy is None else busy / 1e3,
+                   device_idle_share=None if busy is None
+                   else 1.0 - busy / wall_us, device_kernels=kernels)
+        res[f"shards_{n}"] = row
+        if not (row["flash_launches"] == n * attns and shapes and not unheld
+                and row["masks_equal_single_device"]
+                and row["files_decode_max_abs_err"] <= 1e-3
+                and np.isfinite(rec).all() and rec.shape == img.shape):
+            raise AssertionError(f"spatial bf16 at {n} shards: {row}")
+        if n == 2:
+            launches = counts
+        del rec, back
+        release()
+
+    src = os.path.join(workdir, "spatial_png")
+    os.makedirs(src)
+    Image.fromarray((img * 255).astype(np.uint8)).save(
+        os.path.join(src, "big.png"))
+    t1 = time.perf_counter()
+    records = infer_highres.main(
+        ["-i", src, "-o", os.path.join(workdir, "spatial_cli"), "--spatial",
+         "--mesh-devices", "1", "--ratios", str(rc), str(rm)], codec=codec)
+    res["cli"] = dict(flags="--spatial --mesh-devices 1", bpp=records[0][1],
+                      psnr=records[0][2], seconds=time.perf_counter() - t1)
+    if not (len(records) == 1 and records[0][1] > 0
+            and np.isfinite(records[0][2])):
+        raise AssertionError(f"spatial CLI: {records}")
+    log("spatial bf16", **res, card=dev["nvidia_smi"],
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
+def _tiled_mesh(dev: dict, codec) -> None:
+    """Phase 15(c): compress_tiled with a 2-device mesh on cuda:0 on phase
+    10's image (cropped as the CLI crops it). The mesh splits each group of
+    two tiles into two batches of one, and on the card a batch of one need
+    not round as a batch of two does (a convolution algorithm or the flash
+    forward's key splits may follow the batch), so the streams are held
+    against each tile encoded alone: byte-identical. Against mesh=None: the masks equal, and the
+    share of tiles with equal streams and the bpp logged."""
+    import numpy as np
+
+    from control_gic_tpu_torch.parallel.tiling import (compress_tiled,
+                                                       tile_grid)
+
+    t0 = time.perf_counter()
+    h, w = HIGHRES
+    img = make_image(500, (-(-h // 32) * 32, -(-w // 32) * 32))[:h, :w]
+    img = (img * 255).astype(np.uint8).astype(np.float32) / 255.0
+    th, tw = h // 16 * 16, w // 16 * 16
+    top, left = round((h - th) / 2), round((w - tw) / 2)
+    img = np.ascontiguousarray(img[top:top + th, left:left + tw])
+    rc, rm = RATIOS[0]
+    rec, bpp, bundles = compress_tiled(codec, img, rc, rm, tile=TILE)
+    rec_m, bpp_m, bundles_m = compress_tiled(codec, img, rc, rm, tile=TILE,
+                                             mesh=cuda_mesh(2))
+    solo = [codec.encode_batch(img[y:y + a, x:x + b][None], rc, rm)[0]
+            for y, x, a, b in tile_grid(th, tw, TILE)]
+    same_solo = [b.streams for b in bundles_m] == [b.streams for b in solo]
+    masks_equal = all(
+        all(np.array_equal(p, q) for p, q in zip(codec._rebuild(a)[1],
+                                                 codec._rebuild(b)[1]))
+        for a, b in zip(bundles, bundles_m))
+    res = dict(image=[th, tw], tiles=len(solo), bpp=bpp, mesh_bpp=bpp_m,
+               streams_equal_tile_alone=same_solo,
+               masks_equal_unsharded=masks_equal,
+               tiles_with_streams_equal_unsharded=sum(
+                   a.streams == b.streams for a, b in zip(bundles,
+                                                          bundles_m)),
+               recon_max_abs_err_vs_unsharded=float(np.abs(rec - rec_m)
+                                                    .max()),
+               card=dev["nvidia_smi"], seconds=time.perf_counter() - t0)
+    log("tiled mesh of 2 on one card", **res)
+    if not (same_solo and masks_equal):
+        raise AssertionError(f"compress_tiled(mesh=): {res}")
+
+
+def phase_spatial(dev: dict, codec, workdir: str, held) -> dict:
+    """Phase 15: the H-sharded codec at full width; `held`: the (shape,
+    dtype) of each flash forward row of phase 3. Returns the launches of
+    the 2-shard bf16 round trip."""
+    release()
+    t0 = time.perf_counter()
+    _spatial_f32(dev)
+    release()
+    launches = _spatial_bf16(dev, codec, workdir, held)
+    _tiled_mesh(dev, codec)
+    log("spatial", seconds=time.perf_counter() - t0)
+    return launches
 
 
 def main() -> None:
@@ -2685,10 +3530,16 @@ def main() -> None:
     log("programs", **codec._programs.stats(), card=dev["nvidia_smi"])
     phase_f32_parity(make_image(0))
     phase_kodak_f32(codec, kodak[0])
-    del codec, eager
+    del eager
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as workdir:
+        phase_spatial(dev, codec, workdir,
+                      {(tuple(r["shape"]), r["dtype"]) for r in rows
+                       if r["kernel"] == "flash_attn_fwd"})
+    del codec
     phase_tile_f32(make_image(7, (TILE, TILE)))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         train_launches = phase_train(dev, workdir)
+        phase_data_parallel(dev, workdir)
 
     # each kernel's row at its main path's shape, and its launches there:
     # the inference kernels on the Kodak round trip, the training kernels
@@ -2739,4 +3590,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:     # a rank of phase 14(b)
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    else:
+        main()

@@ -6,7 +6,7 @@ Usage:
   python -m control_gic_tpu_torch.cli.infer_highres -i <images_dir> \
       -o <out_dir> [--ckpt model.ckpt] [--ratios 0.1 0.4] [--tile 768] \
       [--overlap 0] [--no-pipeline] [--device_pack] [-r 0 -1] \
-      [--device cuda|cpu]
+      [--mesh-devices N] [--spatial] [--device cuda|cpu]
 
 Per image (center-cropped to /16 by the dataset, as in the JAX CLI): pad to
 /16, split into tiles, compress each tile independently (same-shape tiles
@@ -22,8 +22,12 @@ with the device by threads, the stitched reconstruction down once as uint8.
 (--device_pack packs its streams on the device). Both give the same streams
 and bpp; the pipeline quantizes the reconstruction on the device as
 save_png does, so the PNGs agree to within a unit of 255.
-The H-sharded codec and the mesh are not ported yet: --spatial and
---mesh-devices raise.
+--mesh-devices N splits each tile group over a mesh of N devices (the first
+N cards; N times the CPU with --device cpu) on the per-tile path, and
+--spatial (with --mesh-devices) runs the H-sharded single-pass codec
+(parallel/spatial_codec.py) over that mesh instead of tiles: one routing
+decision for the whole image, no seams. The pipeline runs only without
+either, as in JAX.
 """
 from __future__ import annotations
 
@@ -34,17 +38,12 @@ import time
 import numpy as np
 
 from ..data import EvalImageDataset
+from ..parallel.mesh import make_mesh
+from ..parallel.spatial_codec import compress_spatial
 from ..parallel.tiling import compress_tiled, compress_tiled_device
 from ..utils.device import use_fp32_pipes
 from ..utils.metrics import psnr
 from .common import build_codec, save_png
-
-# options of the JAX CLI that need a path the port does not have yet, and
-# the ROADMAP queue 1 item that ports it
-UNPORTED = {"spatial": "--spatial needs the H-sharded codec (ROADMAP queue "
-                       "1 item 14)",
-            "mesh_devices": "--mesh-devices needs the tile mesh (ROADMAP "
-                            "queue 1 items 13-14)"}
 
 
 def get_parser():
@@ -61,9 +60,12 @@ def get_parser():
                    help="tile overlap in px (multiple of 16); >0 blends "
                         "overlapped tiles with a Gaussian window")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="not ported yet (raises)")
+                   help="shard tile batches over this many devices (0 = "
+                        "off)")
     p.add_argument("--spatial", action="store_true",
-                   help="not ported yet (raises)")
+                   help="H-sharded single-pass codec over the mesh instead "
+                        "of independent tiles (no seams, one global routing "
+                        "decision); needs --mesh-devices")
     p.add_argument("--device_pack", action="store_true",
                    help="per-tile path: entropy-pack the tiles' streams on "
                         "the device, with the encoder (byte-identical)")
@@ -85,21 +87,28 @@ def main(argv=None, codec=None):
     dB, seconds)."""
     args = get_parser().parse_args(argv)
     use_fp32_pipes()
-    for name, why in UNPORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(why)
+    if args.spatial and not args.mesh_devices:
+        raise ValueError("--spatial requires --mesh-devices")
     rc, rm = args.ratios
     os.makedirs(args.output_dir, exist_ok=True)
     if codec is None:
         codec = build_codec(args.ckpt, device=args.device)
+    mesh = None
+    if args.mesh_devices:
+        # the first N cards, or the CPU N times for a CPU codec
+        mesh = make_mesh(args.mesh_devices,
+                         devices=None if codec.device.type == "cuda"
+                         else [codec.device] * args.mesh_devices)
     dataset = EvalImageDataset(args.images_dir,
                                images_range=tuple(args.images_range))
     print(f"Found {len(dataset)} images; tile={args.tile}; "
           f"device={codec.device}")
 
-    # the pipeline runs plain tiled runs (no overlap blending) with a table
-    # the device packer takes; streams and bpp equal the per-tile path's
-    pipeline = (not args.no_pipeline and args.overlap == 0
+    # the pipeline runs plain tiled runs (no overlap blending, no spatial
+    # codec, no mesh) with a table the device packer takes; streams and bpp
+    # equal the per-tile path's
+    pipeline = (not args.no_pipeline and not args.spatial
+                and args.overlap == 0 and mesh is None
                 and codec._device_tables is not None)
     records = []
     with open(os.path.join(args.output_dir, "bpp.txt"), "w") as log:
@@ -135,9 +144,13 @@ def main(argv=None, codec=None):
             for k in range(len(dataset)):
                 img = dataset[k]
                 t0 = time.time()
-                rec, bpp, _ = compress_tiled(
-                    codec, img, rc, rm, tile=args.tile, overlap=args.overlap,
-                    device_pack=args.device_pack)
+                if args.spatial:
+                    rec, bpp, _ = compress_spatial(codec, img, rc, rm, mesh)
+                else:
+                    rec, bpp, _ = compress_tiled(
+                        codec, img, rc, rm, tile=args.tile,
+                        overlap=args.overlap, mesh=mesh,
+                        device_pack=args.device_pack)
                 emit(k, img, rec, bpp, time.time() - t0)
         avg = (f"average: bpp={np.mean([r[1] for r in records]):.5f} "
                f"psnr={np.mean([r[2] for r in records]):.2f}dB")

@@ -2,8 +2,17 @@
 
 The reference recipe: Adam lr 5e-5 betas (0.5, 0.9), gradients clipped by
 value at 1.0, EMA 0.9999, 256x256 center-cropped [-1, 1] images, batch 2
-per card, validation and a checkpoint every 2000 steps. One process drives
-one card; --batch-size is that process's batch.
+per card, validation and a checkpoint every 2000 steps.
+
+Data parallelism: one process per card, started by
+`python -m torch.distributed.run --nproc_per_node N` (or any launcher that
+sets COORDINATOR_ADDRESS or MASTER_ADDR, with RANK and WORLD_SIZE). The
+processes join one group (parallel/multihost.py: NCCL, one card each) and
+--batch-size is the global batch, as in JAX: it must divide by the number
+of ranks, and rank r takes rows [r·b/n, (r+1)·b/n) of the same seeded
+global stream. The step is the global batch's (train/step.py). Only rank 0
+writes checkpoints, metrics and images and prints; every rank stops at a
+preemption signal that any of them got.
 
 Failure handling:
   - SIGTERM / SIGINT finish the step in flight, write a checkpoint and exit;
@@ -18,8 +27,11 @@ Usage:
       [--image-size 256] [--dtype float32|bfloat16] [--remat]
       [--ckpt-dir ./all_saves] [--resume] [--max-restarts 3]
       [--device cuda|cpu]
+  python -m torch.distributed.run --nproc_per_node 4 \
+      -m control_gic_tpu_torch.cli.train --train-dir <imgs> --batch-size 8
 
-On CUDA each step runs as a CUDA graph (Trainer's default).
+On CUDA each step runs as a CUDA graph (Trainer's default), collectives
+included.
 
 `train_loop` takes any iterator of NHWC [-1, 1] batches, so a caller can
 drive the same loop with batches of its own.
@@ -35,8 +47,14 @@ import time
 from typing import Iterable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..models.cgic import CGICConfig
+from ..parallel.multihost import (all_gather, all_reduce_,
+                                  global_device_summary, host_group,
+                                  initialize_multihost, is_primary, launched,
+                                  local_device)
 from ..train import TrainConfig, Trainer, create_train_state
 from ..utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device, use_fp32_pipes
@@ -52,7 +70,8 @@ def get_parser():
     p.add_argument("--val-dir", type=str, default=None)
     p.add_argument("--steps", type=int, default=165_000)
     p.add_argument("--batch-size", type=int, default=2,
-                   help="batch of this process (the reference: 2 per card)")
+                   help="global batch, split over the ranks of a "
+                        "data-parallel run (the reference: 2 per card)")
     p.add_argument("--image-size", type=int, default=256)
     p.add_argument("--lr", type=float, default=5e-5)
     p.add_argument("--ratios", type=float, nargs=2, default=(0.1, 0.4))
@@ -131,80 +150,136 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     resolve_device(args.device)
     use_fp32_pipes()
+    group = None
+    if launched():
+        args.device = str(local_device(args.device))
+        group = initialize_multihost(device=args.device)
+        _print(global_device_summary())
     if args.debug_nans:
         import torch
         torch.autograd.set_detect_anomaly(True)
-    attempt = 0
-    while True:
-        try:
-            return _run(args, resume=args.resume or attempt > 0,
-                        attempt=attempt)
-        except TrainFault as e:
-            attempt += 1
-            if attempt > args.max_restarts:
-                raise
-            print(f"training fault ({e}); restarting from the latest "
-                  f"checkpoint [{attempt}/{args.max_restarts}]")
+    try:
+        attempt = 0
+        while True:
+            try:
+                return _run(args, resume=args.resume or attempt > 0,
+                            attempt=attempt, group=group)
+            except TrainFault as e:
+                attempt += 1
+                if attempt > args.max_restarts:
+                    raise
+                _print(f"training fault ({e}); restarting from the latest "
+                       f"checkpoint [{attempt}/{args.max_restarts}]")
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
 
 
-def _run(args, resume: bool, attempt: int = 0):
+def _print(*a) -> None:
+    if is_primary():
+        print(*a)
+
+
+def _run(args, resume: bool, attempt: int = 0, group=None):
     from ..data import ImageFolderDataset, prefetch_batches
 
     model_cfg, train_cfg = run_configs(args)
-    trainer = Trainer(model_cfg, train_cfg)
+    world = 1 if group is None else dist.get_world_size(group)
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} does not divide "
+                         f"over {world} ranks")
+    _print(f"ranks={world} global_batch={args.batch_size}")
+    trainer = Trainer(model_cfg, train_cfg, group=group)
     state = create_train_state(model_cfg, train_cfg, device=args.device,
                                seed=args.seed)
     start = 0
     if resume and latest_step(args.ckpt_dir) is not None:
         restore_checkpoint(args.ckpt_dir, state)
         start = state.step
-        print(f"resumed from step {start}")
+        _print(f"resumed from step {start}")
     preempted = _install_preemption_handler()
 
     train_ds = ImageFolderDataset(args.train_dir, args.image_size)
-    print(f"train images: {len(train_ds)}, device {state.device}, "
-          f"batch {args.batch_size}")
+    _print(f"train images: {len(train_ds)}, device {state.device}, "
+           f"batch {args.batch_size}")
     data_seed = args.seed
     if attempt and start == 0:
         data_seed = args.seed + attempt
-        print(f"restart with no checkpoint: shuffle seed {args.seed} -> "
-              f"{data_seed}, so as not to replay a deterministic fault")
+        _print(f"restart with no checkpoint: shuffle seed {args.seed} -> "
+               f"{data_seed}, so as not to replay a deterministic fault")
     batches = prefetch_batches(train_ds, args.batch_size, shuffle=True,
                                seed=data_seed, start_step=start)
     val_batch = None
     if args.val_dir:
         val_ds = ImageFolderDataset(args.val_dir, args.image_size)
-        val_batch = np.stack([val_ds[i] for i in
-                              range(min(args.batch_size, len(val_ds)))])
-    metric_log = MetricLogger(args.log_dir, use_wandb=args.wandb)
+        n_val = min(args.batch_size, len(val_ds)) // world * world
+        if n_val:
+            val_batch = np.stack([val_ds[i] for i in range(n_val)])
+    primary = is_primary()
+    metric_log = (MetricLogger(args.log_dir, use_wandb=args.wandb)
+                  if primary else None)
     try:
         return train_loop(args, trainer, state, batches, val_batch=val_batch,
                           preempted=preempted, metric_log=metric_log,
-                          image_log=ImageLogger(args.log_dir))
+                          image_log=ImageLogger(args.log_dir)
+                          if primary else None)
     finally:
         batches.close()
-        metric_log.close()
+        if metric_log is not None:
+            metric_log.close()
+
+
+def _rows(batch, group):
+    """This rank's rows of a global batch (all of it without a group)."""
+    if group is None:
+        return batch
+    n = len(batch) // dist.get_world_size(group)
+    r = dist.get_rank(group)
+    return batch[r * n:(r + 1) * n]
+
+
+def _stop(preempted: Optional[threading.Event], flags) -> bool:
+    """Whether to checkpoint and exit: the event is set here, or, under a
+    group, on any rank, so that every rank stops at the same step. `flags`
+    is the group's host group (multihost.host_group): the all-reduce of the
+    flag runs on the host and does not wait for the step queued on the
+    card."""
+    flag = preempted is not None and preempted.is_set()
+    if flags is None:
+        return flag
+    return bool(all_reduce_(torch.tensor([int(flag)]), flags).item())
+
+
+def _save(args, step: int, state, group) -> None:
+    """The checkpoint, written by rank 0; the other ranks wait for it."""
+    if is_primary():
+        save_checkpoint(args.ckpt_dir, step, state)
+    if group is not None:
+        dist.barrier(group)
 
 
 def train_loop(args, trainer: Trainer, state, batches: Iterable,
                val_batch=None, preempted: Optional[threading.Event] = None,
                metric_log: Optional[MetricLogger] = None,
                image_log: Optional[ImageLogger] = None):
-    """Train from state.step to args.steps on `batches` (NHWC [-1, 1]),
+    """Train from state.step to args.steps on `batches` (NHWC [-1, 1]
+    global batches; under the trainer's group each rank steps on its rows),
     with the CLI's logging, validation, checkpoints and fault checks; a
     set `preempted` event checkpoints and returns after the step in flight.
     Returns the state."""
+    group = trainer.group
+    flags = host_group(group)
     start = state.step
     t0, seen, prof = time.time(), 0, None
     for step, batch in enumerate(batches, start=start):
         if step >= args.steps:
             break
-        if args.profile_dir and step == start + 10:
+        if args.profile_dir and step == start + 10 and is_primary():
             from torch.profiler import ProfilerActivity, profile
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
             prof.__enter__()
-        state, metrics = trainer.train_step(state, batch)
+        state, metrics = trainer.train_step(state, _rows(batch, group))
         seen += len(batch)
         if prof is not None and step == start + 20:
             prof.__exit__(None, None, None)
@@ -219,29 +294,34 @@ def train_loop(args, trainer: Trainer, state, batches: Iterable,
             ips = seen / (time.time() - t0 + 1e-9)
             if metric_log is not None:
                 metric_log.log(step, {**metrics, "images_per_sec": ips})
-            print(f"step {step}: "
-                  + " ".join(f"{k.split('/')[-1]}={v:.4f}"
-                             for k, v in sorted(metrics.items()))
-                  + f" ({ips:.2f} img/s)")
-        if preempted is not None and preempted.is_set():
-            save_checkpoint(args.ckpt_dir, state.step, state)
-            print(f"preemption checkpoint @ {state.step}; exiting")
+            _print(f"step {step}: "
+                   + " ".join(f"{k.split('/')[-1]}={v:.4f}"
+                              for k, v in sorted(metrics.items()))
+                   + f" ({ips:.2f} img/s)")
+        if _stop(preempted, flags):
+            _save(args, state.step, state, group)
+            _print(f"preemption checkpoint @ {state.step}; exiting")
             return state
-        if image_log is not None and log_schedule_hit(step):
-            rec, gi = trainer.recon_step(state, batch)
-            image_log.log(step, np.asarray(batch), rec.float().cpu().numpy(),
-                          gi.cpu().numpy())
+        if log_schedule_hit(step) and (image_log is not None
+                                       or group is not None):
+            # every rank routes its rows with the others (the router's
+            # thresholds are the global batch's); rank 0 logs them all
+            rec, gi = trainer.recon_step(state, _rows(batch, group))
+            rec, gi = all_gather(rec, group), all_gather(gi, group)
+            if image_log is not None:
+                image_log.log(step, np.asarray(batch),
+                              rec.float().cpu().numpy(), gi.cpu().numpy())
         if val_batch is not None and step and step % args.val_every == 0:
-            vm = {k: float(v) for k, v in
-                  trainer.eval_step(state, val_batch).items()}
-            print(f"  val @ {step}: "
-                  + " ".join(f"{k.split('/')[-1]}={v:.4f}"
-                             for k, v in sorted(vm.items())))
+            vm = {k: float(v) for k, v in trainer.eval_step(
+                state, _rows(val_batch, group)).items()}
+            _print(f"  val @ {step}: "
+                   + " ".join(f"{k.split('/')[-1]}={v:.4f}"
+                              for k, v in sorted(vm.items())))
         if step and step % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, step, state)
-            print(f"  checkpoint @ {step}")
-    save_checkpoint(args.ckpt_dir, state.step, state)
-    print("done")
+            _save(args, step, state, group)
+            _print(f"  checkpoint @ {step}")
+    _save(args, state.step, state, group)
+    _print("done")
     return state
 
 

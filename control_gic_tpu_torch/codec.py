@@ -335,6 +335,7 @@ class CGICCodec:
                              "65536")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.counts = counts
         self.huffman = HuffmanCodec.from_counts(counts)
         self.bitmap = BitmapCodec()
         # the device packer takes codes of at most 32 bits (any table

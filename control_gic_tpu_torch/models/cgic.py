@@ -13,6 +13,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.entropy import patch_entropy
@@ -121,12 +122,26 @@ class CGIC(nn.Module):
         return self.quantize.weight
 
     def route(self, x: torch.Tensor, coarse_ratio: float,
-              medium_ratio: float, per_sample: bool = False) -> RouterOutput:
-        """Entropy maps + router; x: [B, 3, H, W]."""
+              medium_ratio: float, per_sample: bool = False,
+              group=None) -> RouterOutput:
+        """Entropy maps + router; x: [B, 3, H, W]. With a process group (a
+        data-parallel step, whose ranks' batches make one global batch),
+        the batch-wide thresholds are those of the global batch, as JAX's
+        router computes them under a jit over the sharded batch: the
+        entropy maps are all-gathered, routed, and this rank keeps its
+        rows."""
         p_m, p_c = self.config.entropy_patch_sizes
-        return triple_grain_router(patch_entropy(x, p_c), patch_entropy(x, p_m),
-                                   coarse_ratio, medium_ratio,
-                                   per_sample=per_sample)
+        e16, e8 = patch_entropy(x, p_c), patch_entropy(x, p_m)
+        if group is None or per_sample:
+            return triple_grain_router(e16, e8, coarse_ratio, medium_ratio,
+                                       per_sample=per_sample)
+        from ..parallel.multihost import all_gather   # parallel/ imports us
+        out = triple_grain_router(all_gather(e16, group),
+                                  all_gather(e8, group), coarse_ratio,
+                                  medium_ratio)
+        b, r = x.shape[0], dist.get_rank(group)
+        return RouterOutput(*(m[r * b:(r + 1) * b] for m in out.masks),
+                            out.mode)
 
     def latent(self, x: torch.Tensor, router: RouterOutput, **drop
                ) -> torch.Tensor:
@@ -144,11 +159,13 @@ class CGIC(nn.Module):
     def encode(self, x: torch.Tensor, coarse_ratio: float,
                medium_ratio: float, *, per_sample: bool = False,
                deterministic: bool = True,
-               generator: Optional[torch.Generator] = None) -> EncodeOutput:
+               generator: Optional[torch.Generator] = None,
+               group=None) -> EncodeOutput:
         """With dropout > 0 and deterministic=False the blocks' dropout
-        draws from `generator` (JAX: the 'dropout' rng)."""
+        draws from `generator` (JAX: the 'dropout' rng). `group`: see
+        route."""
         router = self.route(x, coarse_ratio, medium_ratio,
-                            per_sample=per_sample)
+                            per_sample=per_sample, group=group)
         latent = self.latent(x, router, deterministic=deterministic,
                              generator=generator)
         vq = vq_quantize(latent.float(), self.codebook.float(),
@@ -171,9 +188,10 @@ class CGIC(nn.Module):
 
     def forward(self, x: torch.Tensor, coarse_ratio: float = 0.1,
                 medium_ratio: float = 0.4, *, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group=None):
         enc = self.encode(x, coarse_ratio, medium_ratio,
-                          deterministic=deterministic, generator=generator)
+                          deterministic=deterministic, generator=generator,
+                          group=group)
         return self.decode(enc.quant, enc.router.masks,
                            deterministic=deterministic,
                            generator=generator), enc

@@ -14,6 +14,14 @@ running = 0.9·running + 0.1·batch with that same biased variance, where
 BatchNorm2d would store the unbiased one. In eval mode it uses the running
 statistics. `use_actnorm=True` swaps every norm for ActNorm, and the inner
 convs then keep their bias (the reference's rule).
+
+Under data parallelism the batch statistics are those of the global batch,
+as JAX computes them (its step is jitted over the global batch, and flax's
+BatchNorm reduces over all of it): given a process group, the sums, sums of
+squares and counts are added over the group before the mean and variance
+(`parallel.multihost.all_reduce_sum`, whose gradient is added over the group
+too). The running statistics keep the flax rule, which
+torch.nn.SyncBatchNorm does not.
 """
 from __future__ import annotations
 
@@ -39,12 +47,26 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """group: the process group over which the batch is split (train
+        mode: the statistics are the whole batch's), or None."""
         x = x.float()
-        if self.training:
+        if self.training and group is not None:
+            # here, not at the top: parallel/ imports the codec, which
+            # imports the models
+            from ..parallel.multihost import all_reduce_sum
+            c = x.shape[1]
+            sums = all_reduce_sum(torch.cat([
+                x.sum(dim=(0, 2, 3)), torch.square(x).sum(dim=(0, 2, 3)),
+                x.new_full((1,), x.numel() // c)]), group)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c]
+                              - torch.square(mean), min=0.0)
+        elif self.training:
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp(torch.square(x).mean(dim=(0, 2, 3))
                               - torch.square(mean), min=0.0)
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean.detach())
@@ -106,9 +128,14 @@ class NLayerDiscriminator(nn.Module):
                 if mod.bias is not None:
                     mod.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """group: the process group of a data-parallel step, whose ranks'
+        batches make the BatchNorm statistics together (None: this
+        batch alone)."""
         h = F.leaky_relu(self.conv0(x.float()), 0.2)
         for n in range(1, self.n_layers + 1):
-            h = getattr(self, f"bn{n}")(getattr(self, f"conv{n}")(h))
+            norm = getattr(self, f"bn{n}")
+            h = getattr(self, f"conv{n}")(h)
+            h = norm(h, group) if isinstance(norm, BatchNorm) else norm(h)
             h = F.leaky_relu(h, 0.2)
         return self.conv_out(h)

@@ -188,7 +188,13 @@ def group_norm_reference(f: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, groups: int = GROUPS
                          ) -> torch.Tensor:
     """flax nn.GroupNorm(groups, eps=1e-6) on f's f32 values; f32 out."""
-    mean, rstd = gn_stats(f, groups)
+    return group_norm_apply(f, *gn_stats(f, groups), scale, bias)
+
+
+def group_norm_apply(f: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """group_norm_reference from given [B, C, 1, 1] statistics (the
+    H-sharded codec's, summed over the shards)."""
     mul = rstd * scale.float()[:, None, None]
     return (f.float() - mean) * mul + bias.float()[:, None, None]
 
@@ -201,8 +207,19 @@ def spatial_norm_reference(f: torch.Tensor, zq_r: torch.Tensor,
     """f: [B, C, H, W]; zq_r: [B, Z, H, W] (nearest-resized to f); wy, wb:
     [C, Z] 1x1-conv weights; by, bb, gn_scale, gn_bias: [C]. Output in
     f's dtype."""
+    return spatial_norm_apply_reference(f, zq_r, *gn_stats(f), gn_scale,
+                                        gn_bias, wy, by, wb, bb, act_swish)
+
+
+def spatial_norm_apply_reference(f: torch.Tensor, zq_r: torch.Tensor,
+                                 mean: torch.Tensor, rstd: torch.Tensor,
+                                 gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                                 wy: torch.Tensor, by: torch.Tensor,
+                                 wb: torch.Tensor, bb: torch.Tensor,
+                                 act_swish: bool) -> torch.Tensor:
+    """spatial_norm_reference from given [B, C, 1, 1] statistics (the
+    H-sharded codec's, summed over the shards)."""
     dt = f.dtype
-    mean, rstd = gn_stats(f)
     col = lambda t: t.to(dt)[:, None, None]
     normed = (f - mean.to(dt)) * (rstd.to(dt) * col(gn_scale)) + col(gn_bias)
     z4 = zq_r.to(dt)

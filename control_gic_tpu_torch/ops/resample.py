@@ -68,6 +68,15 @@ def upsample2_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     n, _, h, w = x.shape
     co = weight.shape[0]
     y = F.conv2d(x, phase_conv_kernel(weight, x.dtype), padding=1)
+    return phase_unshuffle(y, n, h, w, co, bias)
+
+
+def phase_unshuffle(y: torch.Tensor, n: int, h: int, w: int, co: int,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """The four phases of the 2x2 conv's output y [N, 4*Co, H+1, W+1]
+    interleaved into [N, Co, 2H, 2W], plus the bias (JAX
+    `phase_unshuffle`). An H-shard's y (its rows [s*H, s*H + H] of the
+    global one, parallel/halo.py) unshuffles with no index change."""
     y = y.reshape(n, 2, 2, co, h + 1, w + 1)
     p00 = y[:, 0, 0, :, 0:h, 0:w]
     p01 = y[:, 0, 1, :, 0:h, 1:w + 1]

@@ -16,11 +16,21 @@ pipelined across groups and images) and `compress_tiled_device` (the tiled
 CLI's default: one upload and one download per image, tiles sliced and
 stitched on the device, streams packed there, images overlapped across the
 host entropy stage by threads; device_unpack=True decodes the streams on
-the device as well). The mesh (ROADMAP queue 1 item 13) is not ported yet
-and raises.
+the device as well).
+
+The tile mesh (`mesh=` of compress_tiled and compress_tiled_many): a tile
+group's batch is split over the mesh's devices when it divides by their
+number (JAX's rule), else it runs unsharded; each chunk runs on a replica of
+the codec on its device (`codec_replica`), all chunks dispatched before any
+is fetched. Per-sample routing keeps the streams byte-identical to those
+of the same tiles encoded at the chunk's batch size. They equal mesh=None's
+on the CPU; on a card the batch size can change the order of some sums
+(the flash forward's key splits, a convolution algorithm), so a chunk may
+round otherwise than the whole group and flip a near-tie index.
 """
 from __future__ import annotations
 
+import copy
 import os
 import queue
 import threading
@@ -34,9 +44,48 @@ import torch
 from ..codec import CGICCodec, EncodedImage, _Fetch, unpack_impl
 from ..coding.stream_pack import fused_to_bytes
 from ..ops.router import mode_from_ratios
+from .mesh import replica, same_device
 
-_NO_MESH = ("mesh= needs the tile mesh (ROADMAP queue 1 item 13), not "
-            "ported yet")
+def codec_replica(codec: CGICCodec, device: torch.device) -> CGICCodec:
+    """The codec on `device`: itself on its own device, else a copy of its
+    model and tables there (graphs as the codec's), made at the first call
+    and again after the codec's weights change (`mesh.replica`)."""
+    if same_device(device, codec.device):
+        return codec
+    return replica(codec, device, codec.model, lambda d: CGICCodec(
+        copy.deepcopy(codec.model), codec.counts, device=d,
+        graphs=None if codec._programs.backend is not None else False))
+
+
+def _mesh_codecs(codec: CGICCodec, mesh, n: int) -> List[CGICCodec]:
+    """The codecs that take a batch of n: one per device of the mesh when n
+    divides by their number (JAX's rule), else the codec alone."""
+    if mesh is None or n % mesh.size:
+        return [codec]
+    return [codec_replica(codec, d) for d in mesh.devices.flat]
+
+
+def _encode_async(codecs, batch: np.ndarray, rc: float, rm: float,
+                  device_pack: bool) -> list:
+    """Each codec's chunk of the batch dispatched: [(codec, pending)]."""
+    return [(c, c.encode_batch_async(chunk, rc, rm, device_pack=device_pack))
+            for c, chunk in zip(codecs, np.split(batch, len(codecs)))]
+
+
+def _encode_finish(pends: list) -> List[EncodedImage]:
+    return [e for c, p in pends for e in c.encode_finish(p)]
+
+
+def _decode_async(codecs, encs: List[EncodedImage]) -> List[_Fetch]:
+    """Each codec's chunk of the bundles decoded, dispatched; a fetch of
+    each chunk (on its device's stream)."""
+    k = len(encs) // len(codecs)
+    return [_Fetch(c.decode_batch_async(encs[i * k:(i + 1) * k]))
+            for i, c in enumerate(codecs)]
+
+
+def _fetch_recs(fetches: List[_Fetch]) -> np.ndarray:
+    return np.concatenate([f.arrays()[0] for f in fetches])
 
 
 def compute_padding(h: int, w: int, min_div: int = 16
@@ -99,6 +148,9 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     non-overlapping grid; a multiple of 16 above 0 overlaps the tiles and
     blends them with the Gaussian window (seams gone, more bits).
     device_pack=True packs the tiles' streams on the device (byte-identical).
+    mesh (parallel.mesh.Mesh): tile groups whose batch divides over its
+    devices are split across them (streams as at the chunk's batch size;
+    see the module docstring).
 
     Returns (reconstruction [H, W, 3] float32, bpp over the original pixels,
     the tiles' bundles in grid order).
@@ -106,8 +158,6 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     if overlap % 16 or not 0 <= overlap < tile:
         raise ValueError(f"overlap must be a multiple of 16 in [0, {tile}), "
                          f"got {overlap}")
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     h0, w0, _ = image.shape
     (pl, pr, pt, pb), _ = compute_padding(h0, w0)
     padded = np.pad(image, ((pt, pb), (pl, pr), (0, 0)))
@@ -128,9 +178,10 @@ def compress_tiled(codec: CGICCodec, image: np.ndarray, coarse_ratio: float,
     for (th, tw), idxs in groups.items():
         batch = np.stack([padded[tiles[i][0]:tiles[i][0] + th,
                                  tiles[i][1]:tiles[i][1] + tw] for i in idxs])
-        encs = codec.encode_batch(batch, coarse_ratio, medium_ratio,
-                                  device_pack=device_pack)
-        recs = codec.decode_batch(encs)
+        codecs = _mesh_codecs(codec, mesh, len(idxs))
+        encs = _encode_finish(_encode_async(codecs, batch, coarse_ratio,
+                                            medium_ratio, device_pack))
+        recs = _fetch_recs(_decode_async(codecs, encs))
         wt = (gaussian_tile_weights(th, tw)[..., None] if overlap
               else np.ones((th, tw, 1), np.float32))
         for j, i in enumerate(idxs):
@@ -443,11 +494,9 @@ def compress_tiled_many(codec: CGICCodec, images, coarse_ratio: float,
     k's streams, the device already encodes group k+1 (possibly of the next
     image), and group k-1's decode drains. Each image's result equals
     compress_tiled(overlap=0)'s: the same tile batches through the same
-    calls.
+    calls. mesh: as in compress_tiled.
 
     Returns [(reconstruction, bpp, bundles), ...] in input order."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     images = list(images)
     plans = []        # (padded, (pt, pb, pl, pr), h0, w0, tiles)
     jobs = []         # (image, (th, tw), tile indices)
@@ -469,8 +518,9 @@ def compress_tiled_many(codec: CGICCodec, images, coarse_ratio: float,
         batch = np.stack([padded[tiles[j][0]:tiles[j][0] + th,
                                  tiles[j][1]:tiles[j][1] + tw]
                           for j in idxs])
-        return codec.encode_batch_async(batch, coarse_ratio, medium_ratio,
-                                        device_pack=device_pack)
+        codecs = _mesh_codecs(codec, mesh, len(idxs))
+        return codecs, _encode_async(codecs, batch, coarse_ratio,
+                                     medium_ratio, device_pack)
 
     state = [(np.zeros(p[0].shape, np.float32), [None] * len(p[4]), [0.0])
              for p in plans]   # per image: canvas, bundles, bits
@@ -489,13 +539,14 @@ def compress_tiled_many(codec: CGICCodec, images, coarse_ratio: float,
     pend_e = dispatch(jobs[0]) if jobs else None
     for k, job in enumerate(jobs):
         nxt = dispatch(jobs[k + 1]) if k + 1 < len(jobs) else None
-        encs = codec.encode_finish(pend_e)
+        codecs, pends = pend_e
+        encs = _encode_finish(pends)
         if pend is not None:
-            stitch(pend[0], pend[1], pend[2].arrays()[0])
-        pend = (job, encs, _Fetch(codec.decode_batch_async(encs)))
+            stitch(pend[0], pend[1], _fetch_recs(pend[2]))
+        pend = (job, encs, _decode_async(codecs, encs))
         pend_e = nxt
     if pend is not None:
-        stitch(pend[0], pend[1], pend[2].arrays()[0])
+        stitch(pend[0], pend[1], _fetch_recs(pend[2]))
 
     out = []
     for (padded, (pt, pb, pl, pr), h0, w0, _), (recon, bundles, bits) in \

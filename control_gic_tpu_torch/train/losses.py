@@ -49,30 +49,37 @@ def vanilla_d_loss(logits_real: torch.Tensor,
 
 
 def adaptive_weight(nll_loss: torch.Tensor, g_loss: torch.Tensor,
-                    last_layer: torch.Tensor) -> torch.Tensor:
+                    last_layer: torch.Tensor, group=None) -> torch.Tensor:
     """The reference's calculate_adaptive_weight (JAX Trainer.
     _adaptive_g_weight): ||d nll / dW|| / (||d g / dW|| + 1e-4), clamped to
     [0, 1e4] and detached, with W the decoder's conv_out weight. Both
     gradients come from the graph of the losses given (kept for the
-    generator's own backward), which is the forward JAX recomputes."""
+    generator's own backward), which is the forward JAX recomputes. Under
+    data parallelism (`group`) the two gradients are the global batch's:
+    averaged over the ranks before their norms."""
     g_nll, = torch.autograd.grad(nll_loss, last_layer, retain_graph=True)
     g_g, = torch.autograd.grad(g_loss, last_layer, retain_graph=True)
+    if group is not None:
+        from ..parallel.multihost import all_reduce_mean
+        g_nll, g_g = all_reduce_mean([g_nll, g_g], group)
     w = torch.linalg.vector_norm(g_nll) / (torch.linalg.vector_norm(g_g)
                                            + 1e-4)
     return torch.clamp(w, 0.0, 1e4).detach()
 
 
 def generator_loss(x, x_rec, p_loss, logits_fake, codebook_loss,
-                   cfg: LossConfig, g_scale=1.0, last_layer=None
+                   cfg: LossConfig, g_scale=1.0, last_layer=None,
+                   group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(scalar loss, metrics). g_scale multiplies the adversarial term (the
     disc_start warm-up factor); given `last_layer`, so does
-    adaptive_weight(nll, g, last_layer)."""
+    adaptive_weight(nll, g, last_layer, group)."""
     rec_loss = torch.square(x.float() - x_rec.float())
     nll_loss = torch.mean(rec_loss + cfg.perceptual_weight * p_loss)
     g_loss = -torch.mean(logits_fake.float())
     if last_layer is not None:
-        g_scale = g_scale * adaptive_weight(nll_loss, g_loss, last_layer)
+        g_scale = g_scale * adaptive_weight(nll_loss, g_loss, last_layer,
+                                            group)
     loss = (nll_loss + cfg.g_weight * g_scale * g_loss
             + cfg.codebook_weight * torch.mean(codebook_loss))
     metrics = {

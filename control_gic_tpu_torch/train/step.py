@@ -32,10 +32,23 @@ them and captures anew.
 
 Batches come as NHWC [-1, 1] arrays (numpy or tensors); the steps permute
 them to NCHW on the state's device.
+
+Data parallelism (`Trainer(group=)`, one process per card, each on its rows
+of the global batch): JAX jits the step over the global batch and XLA puts
+in the collectives; here they are written out at the same points
+(parallel/multihost.py), so that N ranks make the step one process makes on
+the whole batch. The router's batch-wide thresholds come from the
+all-gathered entropy maps, the discriminator's BatchNorm statistics from
+sums over the group, the adaptive weight's two gradients are averaged before
+their norms, the gradients are averaged before the clip, the codebook
+counters add every rank's counts, and the metrics are averaged (val/psnr
+from the averaged error). NCCL's collectives are captured in the step's
+CUDA graph; gloo's cannot be, so a gloo group runs the steps eagerly.
 """
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,12 +56,15 @@ import torch
 
 from ..models.cgic import CGICConfig
 from ..ops import norm_conv
+from ..parallel.multihost import (all_reduce_, all_reduce_mean, capturable,
+                                  group_key)
 from ..utils.programs import CUDAGraphs, Programs
 from .losses import discriminator_loss, generator_loss
 from .state import (TrainConfig, TrainState, apply_gradients, ema_apply,
                     ema_weight)
 
 Metrics = Dict[str, torch.Tensor]
+_LOG = logging.getLogger(__name__)
 
 
 def _uncached(fn):
@@ -61,9 +77,9 @@ def _uncached(fn):
 
 
 def forward_losses(cfg: TrainConfig, state: TrainState, x: torch.Tensor,
-                   g_scale: float = 1.0, adaptive: bool = False):
+                   g_scale: float = 1.0, adaptive: bool = False, group=None):
     """Trainer.forward_losses under the training config `cfg`."""
-    rec, enc = state.gen(x, cfg.coarse_ratio, cfg.medium_ratio)
+    rec, enc = state.gen(x, cfg.coarse_ratio, cfg.medium_ratio, group=group)
     p_loss = torch.mean(state.lpips(rec, x,
                                     normalize=cfg.loss.lpips_normalize))
     state.disc.eval()
@@ -71,67 +87,96 @@ def forward_losses(cfg: TrainConfig, state: TrainState, x: torch.Tensor,
     last = state.gen.decoder.conv_out.weight if adaptive else None
     loss, metrics = generator_loss(x, rec, p_loss, logits_fake,
                                    enc.emb_loss, cfg.loss, g_scale=g_scale,
-                                   last_layer=last)
+                                   last_layer=last, group=group)
     return loss, rec, enc, metrics
+
+
+def _mean_metrics(metrics: Metrics, group) -> Metrics:
+    """Each metric averaged over the group (one all-reduce)."""
+    if group is None:
+        return metrics
+    vals = all_reduce_mean([torch.stack([v.float() for v in
+                                         metrics.values()])], group)[0]
+    return dict(zip(metrics, vals.unbind()))
 
 
 # The programs' functions take the config and the state, not the Trainer:
 # a Trainer keeps its programs, and a program that kept the Trainer would
 # make a reference cycle that holds the graphs' memory until a collection.
 
+def _global_grads(params, grads, group):
+    """The gradients of the global batch's loss: each rank's averaged over
+    the group (one all-reduce), before the clip; a parameter without one
+    gets zeros, as jax.grad gives."""
+    if group is None:
+        return grads
+    return all_reduce_mean([torch.zeros_like(p) if g is None else g
+                            for p, g in zip(params, grads)], group)
+
+
 def _step(cfg: TrainConfig, state: TrainState, on: float, x: torch.Tensor,
-          ema_w: torch.Tensor) -> Metrics:
+          ema_w: torch.Tensor, group=None) -> Metrics:
     """The device side of one training step (everything but the host
-    counters); on: the disc_start side, ema_w: ema_weight's value."""
+    counters); on: the disc_start side, ema_w: ema_weight's value, group:
+    the data-parallel process group (None: one process)."""
     # ---- generator update
     gen_params = list(state.gen.parameters())
     adaptive = cfg.loss.adaptive_g_weight and on > 0.0
-    g_loss, rec, enc, g_metrics = forward_losses(cfg, state, x, on, adaptive)
+    g_loss, rec, enc, g_metrics = forward_losses(cfg, state, x, on, adaptive,
+                                                 group)
     grads = torch.autograd.grad(g_loss, gen_params, allow_unused=True)
-    apply_gradients(state.opt_gen, gen_params, grads, cfg)
+    apply_gradients(state.opt_gen, gen_params,
+                    _global_grads(gen_params, grads, group), cfg)
 
     # ---- discriminator update (reconstruction detached)
     disc_params = list(state.disc.parameters())
     rec_sg = rec.detach()
     state.disc.train()
-    logits_real = state.disc(x)
-    logits_fake = state.disc(rec_sg)
+    logits_real = state.disc(x, group)
+    logits_fake = state.disc(rec_sg, group)
     state.disc.eval()
     d_loss, d_metrics = discriminator_loss(logits_real, logits_fake,
                                            cfg.loss)
     if cfg.loss.disc_start > 0:
         d_loss = d_loss * on
     d_grads = torch.autograd.grad(d_loss, disc_params, allow_unused=True)
-    apply_gradients(state.opt_disc, disc_params, d_grads, cfg)
+    apply_gradients(state.opt_disc, disc_params,
+                    _global_grads(disc_params, d_grads, group), cfg)
 
     # ---- EMA + counters
     ema_apply([state.ema[n] for n, _ in state.gen.named_parameters()],
               gen_params, ema_w)
-    state.codebook_counts += enc.counts.to(state.codebook_counts.dtype)
+    state.codebook_counts += all_reduce_(
+        enc.counts.to(state.codebook_counts.dtype), group)
 
     metrics = {f"train/{k}": v.detach()
                for k, v in {**g_metrics, **d_metrics}.items()}
     metrics["train/aeloss"] = g_loss.detach()
     metrics["train/discloss"] = d_loss.detach()
-    return metrics
+    return _mean_metrics(metrics, group)
 
 
-def _eval(cfg: TrainConfig, state: TrainState, x: torch.Tensor) -> Metrics:
+def _eval(cfg: TrainConfig, state: TrainState, x: torch.Tensor,
+          group=None) -> Metrics:
     with torch.no_grad():
-        _, rec, _, g_metrics = forward_losses(cfg, state, x)
+        _, rec, _, g_metrics = forward_losses(cfg, state, x, group=group)
         logits_real = state.disc(x)
         logits_fake = state.disc(rec)
         _, d_metrics = discriminator_loss(logits_real, logits_fake,
                                           cfg.loss)
         out = {f"val/{k}": v for k, v in {**g_metrics, **d_metrics}.items()}
-        out["val/psnr"] = -10.0 * torch.log10(
-            torch.mean(torch.square(rec.float() - x)) / 4.0 + 1e-12)
+        out["val/mse"] = torch.mean(torch.square(rec.float() - x))
+        out = _mean_metrics(out, group)
+        out["val/psnr"] = -10.0 * torch.log10(out.pop("val/mse") / 4.0
+                                              + 1e-12)
     return out
 
 
-def _recon(cfg: TrainConfig, state: TrainState, x: torch.Tensor):
+def _recon(cfg: TrainConfig, state: TrainState, x: torch.Tensor,
+           group=None):
     with torch.no_grad():
-        rec, enc = state.gen(x, cfg.coarse_ratio, cfg.medium_ratio)
+        rec, enc = state.gen(x, cfg.coarse_ratio, cfg.medium_ratio,
+                             group=group)
     return rec.permute(0, 2, 3, 1), enc.grain_indices
 
 
@@ -139,12 +184,27 @@ class Trainer:
     """Binds the model and training configs to the step functions; the
     modules and optimizers live in the TrainState. graphs: None (the
     default) or True runs the steps as CUDA graphs on a CUDA state, False
-    runs them eagerly; a CPU state always runs eagerly."""
+    runs them eagerly; a CPU state always runs eagerly. group: the process
+    group of a data-parallel run (parallel/multihost.py), each rank passing
+    its rows of the global batch; None for one process. Under a gloo group
+    graphs=True raises and graphs=None runs eagerly: gloo's collectives
+    cannot be captured."""
 
     def __init__(self, model_cfg: CGICConfig, train_cfg: TrainConfig,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, group=None):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
+        self.group = group
+        if not capturable(group):
+            if graphs:
+                raise ValueError(
+                    "graphs=True under a gloo group: gloo's collectives "
+                    "cannot be captured in a CUDA graph; use NCCL (one "
+                    "card per rank) or graphs=False")
+            if graphs is None:
+                _LOG.info("gloo group of %d ranks: the steps run eagerly",
+                          group.size())
+                graphs = False
         self.graphs = graphs
         self._programs: Optional[Programs] = None
         self._cache: dict = {}
@@ -163,7 +223,8 @@ class Trainer:
         """The generator's loss on NCHW x (JAX `_forward_losses`), with the
         adaptive weight in g_scale when `adaptive`: returns
         (loss, rec, enc, metrics)."""
-        return forward_losses(self.train_cfg, state, x, g_scale, adaptive)
+        return forward_losses(self.train_cfg, state, x, g_scale, adaptive,
+                              self.group)
 
     def _adversarial_on(self, state: TrainState) -> float:
         start = self.train_cfg.loss.disc_start
@@ -184,17 +245,23 @@ class Trainer:
         return self._programs
 
     def _run(self, state: TrainState, key: tuple, fn, *inputs):
-        """fn(*inputs) through the program of `key`: captured and
-        replayed on a CUDA state (unless graphs=False), eager otherwise.
-        Programs whose state tensors were replaced are dropped first."""
+        """fn(*inputs) through the program of `key` and the group that the
+        step reads now (its rank, size and backend): captured and replayed
+        on a CUDA state (unless graphs=False), eager otherwise. Programs
+        whose state tensors were replaced are dropped first."""
         programs = self._programs_for(state)
         if programs.backend is None:
             return fn(*inputs)
+        if not capturable(self.group):
+            raise ValueError("a gloo group's collectives cannot be captured "
+                             "in a CUDA graph: build the Trainer with the "
+                             "group, or with graphs=False")
         stamp = lambda: tuple(t.data_ptr() for t in state.tensors())
         if stamp() != self._stamp:
             programs.clear()
         captured = programs.captured
-        out = programs.run(self._cache, key, _uncached(fn), *inputs)
+        out = programs.run(self._cache, (*key, group_key(self.group)),
+                           _uncached(fn), *inputs)
         if programs.captured != captured:
             # a first call's warm-up may have made the optimizers' state
             self._stamp = stamp()
@@ -221,7 +288,7 @@ class Trainer:
                            dtype=torch.float32, device=state.device)
         metrics = self._run(state, ("train", on),
                             functools.partial(_step, self.train_cfg, state,
-                                              on),
+                                              on, group=self.group),
                             x, ema_w)
         if self._programs_for(state).backend is not None:
             # a replay wrote these without bumping their versions
@@ -232,11 +299,13 @@ class Trainer:
 
     def eval_step(self, state: TrainState, x) -> Metrics:
         return self._run(state, ("eval",),
-                         functools.partial(_eval, self.train_cfg, state),
+                         functools.partial(_eval, self.train_cfg, state,
+                                           group=self.group),
                          self.to_input(state, x))
 
     def recon_step(self, state: TrainState, x):
         """Reconstruction (NHWC) and partition map, for image logging."""
         return self._run(state, ("recon",),
-                         functools.partial(_recon, self.train_cfg, state),
+                         functools.partial(_recon, self.train_cfg, state,
+                                           group=self.group),
                          self.to_input(state, x))

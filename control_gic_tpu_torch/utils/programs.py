@@ -49,8 +49,10 @@ The key of a program: JAX's static key, the inputs' shapes and dtypes, the
 state that the port reads at call time and a capture would bake in (the
 engagement switches, `ops.plain_versions()`, norm_conv's engagement rule and
 `force_norm_conv`, the element and token gates, PyTorch's deterministic
-and cuDNN flags), and a generation of the
-model's weights. A captured graph reads the weight packs its warm-up built,
+and cuDNN flags), and a generation of the model's weights (the key that
+the Trainer gives its steps also carries the process group whose
+collectives they run, its rank, size and backend: a program captured
+without a group is never replayed with one). A captured graph reads the weight packs its warm-up built,
 so an in-place change of the weights (`load_state_dict`, an EMA swap) must
 capture anew, not replay stale packs; JAX passes the weights as an argument
 and gets this for free. A new generation drops every program of the old

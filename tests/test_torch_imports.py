@@ -22,6 +22,11 @@ import control_gic_tpu_torch.models.discriminator
 import control_gic_tpu_torch.utils.checkpoint, control_gic_tpu_torch.utils.logging
 import control_gic_tpu_torch.utils.draw, control_gic_tpu_torch.data
 import control_gic_tpu_torch.parallel, control_gic_tpu_torch.parallel.tiling
+import control_gic_tpu_torch.parallel.mesh, control_gic_tpu_torch.parallel.multihost
+import control_gic_tpu_torch.parallel.halo
+import control_gic_tpu_torch.parallel.spatial_encoder
+import control_gic_tpu_torch.parallel.spatial_decoder
+import control_gic_tpu_torch.parallel.spatial_codec
 import control_gic_tpu_torch.cli.infer_highres
 import control_gic_tpu_torch.coding.native_lib
 import control_gic_tpu_torch.coding.huffman_device

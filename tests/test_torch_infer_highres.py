@@ -1,7 +1,8 @@
 """The port's high-res CLI on PNGs in a temp dir, at a tiny config on the
 CPU: it writes the reconstructions and bpp.txt with the bpp of JAX's CLI
 (run on its per-tile path, --no-pipeline, with the same weights and counts),
-and the options whose paths are not ported raise. The pipeline and
+and --spatial and --mesh-devices run the H-sharded codec and the tile
+mesh. The pipeline and
 --device_pack are held in test_torch_tiling_device.py."""
 import numpy as np
 import jax
@@ -17,6 +18,7 @@ from control_gic_tpu.models import CGICConfig as JConfig
 from control_gic_tpu_torch.codec import CGICCodec
 from control_gic_tpu_torch.models import CGIC, CGICConfig
 from control_gic_tpu_torch.utils.from_jax import state_dict_from_flax
+from control_gic_tpu_torch.utils.metrics import psnr
 
 torch.set_num_threads(2)
 
@@ -79,12 +81,38 @@ def test_cli_writes_pngs_and_bpp_like_jax(codecs, pngs, tmp_path,
         tmp_path / "jax" / "bpp.txt")
 
 
-@pytest.mark.parametrize("flag, item", [(["--spatial"], "item 14"),
-                                        (["--mesh-devices", "4"], "13-14")])
+@pytest.mark.parametrize("flag, item", [
+    (["--spatial", "--mesh-devices", "2"], "item 14"),
+    (["--mesh-devices", "4"], "13-14")])
 def test_unported_options_raise(codecs, pngs, tmp_path, flag, item):
+    """The options once refused (ROADMAP queue 1 `item`) now run: --spatial
+    over a 2-device CPU mesh writes the bpp and the reconstruction of
+    compress_spatial on the same image, and needs --mesh-devices (it still
+    raises without); --mesh-devices 4 alone splits the tile groups over
+    the mesh, with the bpp of the unsharded per-tile path."""
+    from control_gic_tpu_torch.data import EvalImageDataset
+    from control_gic_tpu_torch.parallel.mesh import make_mesh
+    from control_gic_tpu_torch.parallel.spatial_codec import compress_spatial
     _, codec = codecs
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["-i", str(pngs), "-o", str(tmp_path)] + flag, codec=codec)
+    args = ["-i", str(pngs), "--tile", "64", "--ratios", "0.1", "0.4"]
+    records = cli.main(args + ["-o", str(tmp_path / "opt")] + flag,
+                       codec=codec)
+    assert [r[0] for r in records] == [0, 1]
+    if "--spatial" in flag:
+        mesh = make_mesh(2, devices=["cpu"] * 2)
+        for (k, bpp, p, _), img in zip(records, EvalImageDataset(str(pngs))):
+            rec, want, _ = compress_spatial(codec, img, 0.1, 0.4, mesh)
+            assert bpp == want
+            assert p == pytest.approx(psnr(np.clip(rec, 0, 1), img),
+                                      abs=1e-9)
+        with pytest.raises(ValueError, match="--mesh-devices"):
+            cli.main(args + ["-o", str(tmp_path / "no_mesh"), "--spatial"],
+                     codec=codec)
+    else:
+        cli.main(args + ["-o", str(tmp_path / "plain"), "--no-pipeline"],
+                 codec=codec)
+        assert _bpps(tmp_path / "opt" / "bpp.txt") == _bpps(
+            tmp_path / "plain" / "bpp.txt")
 
 
 def test_cli_overlap_blends_tiles(codecs, pngs, tmp_path):

@@ -187,8 +187,8 @@ def test_captured_steps_equal_eager_steps(fresh, probe, option):
             assert all(probe[k0:k1]) and k1 > k0
     assert not any(probe[k1:])                     # eager: from the cache
     assert (backend.captures, backend.replays) == (2, 2)
-    assert sorted(k[0] for k in captured._cache) == [("train", 0.0),
-                                                     ("train", 1.0)]
+    assert sorted(k[0] for k in captured._cache) == [("train", 0.0, None),
+                                                     ("train", 1.0, None)]
     assert captured.program_stats()["programs_captured"] == 2
 
 
@@ -309,5 +309,37 @@ def test_algorithm_flags_capture_anew(fresh):
         torch.use_deterministic_algorithms(old[0], warn_only=old[1])
     assert (backend.captures, backend.replays) == (2, 0)
     keys = list(captured._cache)
-    assert keys[0][0] == keys[1][0] == ("train", 0.0)
+    assert keys[0][0] == keys[1][0] == ("train", 0.0, None)
     assert keys[0][2] != keys[1][2]
+
+
+def test_group_keys_the_programs(fresh, monkeypatch):
+    """The step's program is keyed on the group it runs the collectives
+    of: a program captured without a group is not replayed once the
+    trainer has one (a gloo group of one rank, taken as capturable here);
+    the new program replays under that group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from control_gic_tpu_torch.train import step as step_mod
+
+    states, batches = fresh
+    captured, backend, state, _, _ = _trainers("default", states["default"])
+    captured.train_step(state, batches[0])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        monkeypatch.setattr(step_mod, "capturable", lambda group: True)
+        captured.group = dist.group.WORLD
+        captured.train_step(state, batches[1])
+        state.step = 1                    # the same side of disc_start
+        captured.train_step(state, batches[2])
+    finally:
+        dist.destroy_process_group()
+    assert (backend.captures, backend.replays) == (2, 1)
+    assert [k[0] for k in captured._cache] == [
+        ("train", 0.0, None), ("train", 0.0, (0, 1, "gloo"))]
