@@ -275,9 +275,13 @@ def train_loop(args, trainer: Trainer, state, batches: Iterable,
         if step >= args.steps:
             break
         if args.profile_dir and step == start + 10 and is_primary():
+            from torch._C._profiler import _ExperimentalConfig
             from torch.profiler import ProfilerActivity, profile
+            # every thread's events, not only this one's
             prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
+                                       ProfilerActivity.CUDA],
+                           experimental_config=_ExperimentalConfig(
+                               profile_all_threads=True))
             prof.__enter__()
         state, metrics = trainer.train_step(state, _rows(batch, group))
         seen += len(batch)

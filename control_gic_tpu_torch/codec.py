@@ -36,6 +36,11 @@ of it runs on the device's current stream, one queue as in JAX, from
 whichever thread. `encode_batch_async` / `encode_finish` and
 `decode_batch_async` split the two halves, and `roundtrip_pipelined` runs
 batch i's host entropy stage while the device encodes batch i+1.
+
+Timing is by spans (utils/trace.py): `compress` and `roundtrip_pipelined`
+open a request's root span, each stage, upload, device wait and program
+replay a span under it, and the seconds of `stats=` and
+`last_pipeline_stats` are their sums.
 """
 from __future__ import annotations
 
@@ -43,7 +48,6 @@ import dataclasses
 import os
 import queue
 import threading
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -65,6 +69,7 @@ from .models.cgic import CGIC
 from .ops.router import mode_from_ratios
 from .utils.device import resolve_device
 from .utils.programs import CUDAGraphs, Programs
+from .utils.trace import span
 
 STREAM_FILES = {
     "indices_coarse": "indices_coarse.bin",
@@ -91,16 +96,37 @@ class CorruptStreamError(ValueError):
     a symbol outside the codebook."""
 
 
-def _acc(stats: Optional[dict], key: str, val: float) -> None:
-    if stats is not None:
-        stats[key] = stats.get(key, 0.0) + val
+def _put(q: "queue.Queue", name: str, item, root: span,
+         batch: Optional[int] = None) -> None:
+    """q.put(item); a put that blocks on a full queue is a queue_wait span
+    of the pipeline `root`."""
+    try:
+        q.put_nowait(item)
+    except queue.Full:
+        with span("cgic.pipe.queue_wait", parent=root, batch=batch, queue=name,
+                  op="put"):
+            q.put(item)
+
+
+def _get(q: "queue.Queue", name: str, root: span):
+    """q.get(); a get that blocks on an empty queue is a queue_wait span of
+    the pipeline `root`, with the batch index of the item it took."""
+    try:
+        return q.get_nowait()
+    except queue.Empty:
+        with span("cgic.pipe.queue_wait", parent=root, queue=name,
+                  op="get") as sp:
+            item = q.get()
+            sp.batch = None if item is None else item[0]
+        return item
 
 
 class _Fetch:
     """Device tensors on their way to the host: pinned copies enqueued on
     the device's current stream behind the work that computes them, an
     event after that work (`sync`) and one after the copies (`arrays`). On
-    the CPU, the tensors themselves."""
+    the CPU, the tensors themselves. Both waits are device_wait spans, whose
+    seconds go to stats[key] where given."""
 
     def __init__(self, *tensors: torch.Tensor):
         dev = tensors[0].device
@@ -117,16 +143,20 @@ class _Fetch:
         self.copied = torch.cuda.Event()
         self.copied.record(stream)
 
-    def sync(self) -> None:
+    def sync(self, stats: Optional[dict] = None,
+             key: Optional[str] = None) -> None:
         """Wait for the work that computes the tensors."""
-        if self.done is not None:
-            self.done.synchronize()
+        with span("cgic.codec.device_wait", stats, key, wait="sync"):
+            if self.done is not None:
+                self.done.synchronize()
 
-    def arrays(self) -> List[np.ndarray]:
+    def arrays(self, stats: Optional[dict] = None,
+               key: Optional[str] = None) -> List[np.ndarray]:
         """Wait for the copies; the tensors as numpy arrays."""
-        if self.copied is not None:
-            self.copied.synchronize()
-        return [t.numpy() for t in self.host]
+        with span("cgic.codec.device_wait", stats, key, wait="copy"):
+            if self.copied is not None:
+                self.copied.synchronize()
+            return [t.numpy() for t in self.host]
 
 
 @dataclasses.dataclass
@@ -370,10 +400,11 @@ class CGICCodec:
         """numpy -> the device, without waiting: staged in pinned memory and
         copied on the current stream (the host allocator keeps the pinned
         block until the copy is done)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        with span("cgic.codec.upload", bytes=arr.nbytes):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if self.device.type != "cuda":
+                return t
+            return t.pin_memory().to(self.device, non_blocking=True)
 
     def _to_input(self, images: np.ndarray) -> torch.Tensor:
         """[N, H, W, 3] numpy in [0, 1] (uint8 divided by 255 on the device)
@@ -499,14 +530,16 @@ class CGICCodec:
         if image.ndim != 3:
             raise ValueError(f"expected one [H, W, 3] image, got "
                              f"{image.shape}")
-        t0 = time.perf_counter()
-        pend = self.encode_batch_async(image[None], coarse_ratio,
-                                       medium_ratio, device_pack=device_pack,
-                                       per_sample=False)
         st: Dict[str, float] = {}
-        out = self.encode_finish(pend, stats=st)[0]
-        _acc(stats, "encode_s", time.perf_counter() - t0 - st["b_frame_s"])
-        _acc(stats, "entropy_s", st["b_frame_s"])
+        with span("cgic.codec.encode", stats, "encode_s"):
+            pend = self.encode_batch_async(image[None], coarse_ratio,
+                                           medium_ratio,
+                                           device_pack=device_pack,
+                                           per_sample=False)
+            out = self.encode_finish(pend, stats=st)[0]
+        if stats is not None:
+            stats["encode_s"] -= st["b_frame_s"]
+            stats["entropy_s"] = stats.get("entropy_s", 0.0) + st["b_frame_s"]
         return out
 
     def encode_batch(self, images: np.ndarray, coarse_ratio: float,
@@ -799,13 +832,14 @@ class CGICCodec:
         self.last_decode_path = "device" if engaged else "host"
         dispatch = (self.decode_batch_device_async if engaged
                     else self.decode_batch_async)
-        t0 = time.perf_counter()
         st: Dict[str, float] = {}
-        out = _Fetch(dispatch(encoded, out_uint8=out_uint8,
-                              stats=st)).arrays()[0]
-        _acc(stats, "rebuild_s", st["b_rebuild_s"])
-        _acc(stats, "decode_s",
-             time.perf_counter() - t0 - st["b_rebuild_s"])
+        with span("cgic.codec.decode", stats, "decode_s"):
+            out = _Fetch(dispatch(encoded, out_uint8=out_uint8,
+                                  stats=st)).arrays()[0]
+        if stats is not None:
+            stats["decode_s"] -= st["b_rebuild_s"]
+            stats["rebuild_s"] = (stats.get("rebuild_s", 0.0)
+                                  + st["b_rebuild_s"])
         return out
 
     def decode(self, encoded: EncodedImage, *,
@@ -842,23 +876,22 @@ class CGICCodec:
         encode), 'b_fetch_s' (waiting for the copy to the host),
         'b_frame_s' (host framing or entropy coding) and 'b_fetch_bytes'."""
         fetch = pending.packed if pending.packed is not None else pending.enc
-        t0 = time.perf_counter()
-        fetch.sync()
-        t1 = time.perf_counter()
-        arrays = fetch.arrays()
-        t2 = time.perf_counter()
-        if pending.packed is not None:
-            out = self._frame_packed(arrays[0], pending.mode,
-                                     pending.image_hw, pending.n)
-        else:
-            ind, m_c, m_m, m_f = arrays
-            out = [self.streams_from_arrays(ind[i], m_c[i], m_m[i], m_f[i],
-                                            pending.mode, pending.image_hw)
-                   for i in range(pending.n)]
-        _acc(stats, "b_sync_s", t1 - t0)
-        _acc(stats, "b_fetch_s", t2 - t1)
-        _acc(stats, "b_frame_s", time.perf_counter() - t2)
-        _acc(stats, "b_fetch_bytes", sum(a.nbytes for a in arrays))
+        fetch.sync(stats, "b_sync_s")
+        arrays = fetch.arrays(stats, "b_fetch_s")
+        nbytes = sum(a.nbytes for a in arrays)
+        with span("cgic.coding.frame", stats, "b_frame_s", bytes=nbytes,
+                  images=pending.n):
+            if pending.packed is not None:
+                out = self._frame_packed(arrays[0], pending.mode,
+                                         pending.image_hw, pending.n)
+            else:
+                ind, m_c, m_m, m_f = arrays
+                out = [self.streams_from_arrays(ind[i], m_c[i], m_m[i],
+                                                m_f[i], pending.mode,
+                                                pending.image_hw)
+                       for i in range(pending.n)]
+        if stats is not None:
+            stats["b_fetch_bytes"] = stats.get("b_fetch_bytes", 0.0) + nbytes
         return out
 
     @staticmethod
@@ -881,16 +914,16 @@ class CGICCodec:
         uint8 with out_uint8). `stats` accumulates 'b_rebuild_s' (host
         entropy decode and the compact buffer), 'b_h2d_dispatch_s' and
         'b_h2d_bytes'."""
-        t0 = time.perf_counter()
-        mode, hl_wl = self._batch_layout(encoded)
-        inds = [self._rebuild(e)[0] for e in encoded]
-        buf = self._compact_decode_input(encoded, inds)
-        t1 = time.perf_counter()
-        out = self._decode(self._upload(buf.view(np.int16)), mode, *hl_wl,
-                           out_uint8)
-        _acc(stats, "b_rebuild_s", t1 - t0)
-        _acc(stats, "b_h2d_dispatch_s", time.perf_counter() - t1)
-        _acc(stats, "b_h2d_bytes", buf.nbytes)
+        with span("cgic.coding.rebuild", stats, "b_rebuild_s",
+                  images=len(encoded)):
+            mode, hl_wl = self._batch_layout(encoded)
+            inds = [self._rebuild(e)[0] for e in encoded]
+            buf = self._compact_decode_input(encoded, inds)
+        with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
+            out = self._decode(self._upload(buf.view(np.int16)), mode,
+                               *hl_wl, out_uint8)
+        if stats is not None:
+            stats["b_h2d_bytes"] = stats.get("b_h2d_bytes", 0.0) + buf.nbytes
         return out
 
     @torch.no_grad()
@@ -908,15 +941,16 @@ class CGICCodec:
                              "device-decodable (code lengths outside "
                              "[1, MAX_LUT_BITS]); use decode_batch_async")
         mode, hl_wl = self._batch_layout(encoded)
-        t0 = time.perf_counter()
-        flat, offs = self._flat_stream_upload(encoded)
-        t1 = time.perf_counter()
-        out = self._decode_unpack(self._upload(flat.view(np.int32)),
-                                  self._upload(offs), mode, *hl_wl,
-                                  out_uint8)
-        _acc(stats, "b_rebuild_s", t1 - t0)
-        _acc(stats, "b_h2d_dispatch_s", time.perf_counter() - t1)
-        _acc(stats, "b_h2d_bytes", flat.nbytes + offs.nbytes)
+        with span("cgic.coding.rebuild", stats, "b_rebuild_s",
+                  images=len(encoded)):
+            flat, offs = self._flat_stream_upload(encoded)
+        with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
+            out = self._decode_unpack(self._upload(flat.view(np.int32)),
+                                      self._upload(offs), mode, *hl_wl,
+                                      out_uint8)
+        if stats is not None:
+            stats["b_h2d_bytes"] = (stats.get("b_h2d_bytes", 0.0)
+                                    + flat.nbytes + offs.nbytes)
         return out
 
     def roundtrip_pipelined(self, batches, coarse_ratio: float,
@@ -941,8 +975,9 @@ class CGICCodec:
         stage overlaps the dispatch. device_unpack=True decodes through the
         device receiver (decode_batch_device_async) where the table allows.
 
-        After the call, self.last_pipeline_stats holds each stage's summed
-        seconds and bytes (a_upload_s, b_sync_s, b_fetch_s, b_frame_s,
+        A call is a request's root span, cgic.codec.roundtrip. After the
+        call, self.last_pipeline_stats holds each stage's summed seconds and
+        bytes (a_upload_s, b_sync_s, b_fetch_s, b_frame_s,
         b_rebuild_s, b_h2d_dispatch_s, b_h2d_bytes, c_sync_s, c_fetch_s,
         wall_s, threaded, device_unpack); the stage sums against wall_s say
         how much the stages overlapped.
@@ -962,41 +997,41 @@ class CGICCodec:
                      else self.decode_batch_async)
         stats = defaultdict(float)
         stats["device_unpack"] = float(engaged)
-        t_wall = time.perf_counter()
         recs: List[np.ndarray] = []
         encs_all: List[List[EncodedImage]] = []
 
-        def fetch_rec(fetch):
-            t0 = time.perf_counter()
-            fetch.sync()
-            t1 = time.perf_counter()
-            recs.append(fetch.arrays()[0])
-            stats["c_sync_s"] += t1 - t0
-            stats["c_fetch_s"] += time.perf_counter() - t1
+        def fetch_rec(fetch, i):
+            with span("cgic.pipe.c", batch=i):
+                fetch.sync(stats, "c_sync_s")
+                recs.append(fetch.arrays(stats, "c_fetch_s")[0])
 
         def dispatch(i):
-            t0 = time.perf_counter()
-            pend = self.encode_batch_async(batches[i], coarse_ratio,
-                                           medium_ratio,
-                                           device_pack=device_pack)
-            stats["a_upload_s"] += time.perf_counter() - t0
+            with span("cgic.pipe.a", stats, "a_upload_s", batch=i,
+                      bytes=batches[i].nbytes):
+                pend = self.encode_batch_async(batches[i], coarse_ratio,
+                                               medium_ratio,
+                                               device_pack=device_pack)
             stats["a_upload_bytes"] += batches[i].nbytes
             return pend
 
-        pend_d = None
-        pend_e = dispatch(0) if batches else None
-        for i in range(len(batches)):
-            nxt = dispatch(i + 1) if i + 1 < len(batches) else None
-            encs = self.encode_finish(pend_e, stats=stats)
-            encs_all.append(encs)
+        with span("cgic.codec.roundtrip", stats, "wall_s",
+                  batches=len(batches),
+                  images=sum(len(b) for b in batches)):
+            pend_d = None
+            pend_e = dispatch(0) if batches else None
+            for i in range(len(batches)):
+                nxt = dispatch(i + 1) if i + 1 < len(batches) else None
+                with span("cgic.pipe.b", batch=i):
+                    encs = self.encode_finish(pend_e, stats=stats)
+                encs_all.append(encs)
+                if pend_d is not None:
+                    fetch_rec(pend_d, i - 1)
+                with span("cgic.pipe.b", batch=i):
+                    pend_d = _Fetch(dec_async(encs, out_uint8=out_uint8,
+                                              stats=stats))
+                pend_e = nxt
             if pend_d is not None:
-                fetch_rec(pend_d)
-            pend_d = _Fetch(dec_async(encs, out_uint8=out_uint8,
-                                      stats=stats))
-            pend_e = nxt
-        if pend_d is not None:
-            fetch_rec(pend_d)
-        stats["wall_s"] = time.perf_counter() - t_wall
+                fetch_rec(pend_d, len(batches) - 1)
         stats["threaded"] = 0.0
         self.last_pipeline_stats = dict(stats)
         return recs, encs_all
@@ -1008,7 +1043,8 @@ class CGICCodec:
         at most two batches a stage, which bounds device memory. A worker's
         first error stops the dispatch; the workers drain their queues so
         that no producer blocks on a dead consumer, and the error is raised
-        here."""
+        here. The workers' spans belong to the call's root span, each to
+        the batch of the queue item it works on."""
         n = len(batches)
         recs: List[Optional[np.ndarray]] = [None] * n
         encs_all: List[Optional[List[EncodedImage]]] = [None] * n
@@ -1020,65 +1056,64 @@ class CGICCodec:
                      else self.decode_batch_async)
         stats = defaultdict(float)   # each stage writes its own keys
         stats["device_unpack"] = float(engaged)
-        t_wall = time.perf_counter()
+        root = span("cgic.codec.roundtrip", stats, "wall_s", batches=n,
+                    images=sum(len(b) for b in batches))
 
         def worker_b():
             while True:
-                item = qa.get()
+                item = _get(qa, "qa", root)
                 if item is None:
-                    qb.put(None)
+                    _put(qb, "qb", None, root)
                     return
                 if errors:
                     continue
                 i, pend = item
                 try:
-                    with torch.no_grad():
+                    with torch.no_grad(), span("cgic.pipe.b", parent=root,
+                                               batch=i):
                         encs = self.encode_finish(pend, stats=stats)
                         rec = _Fetch(dec_async(encs, out_uint8=out_uint8,
                                                stats=stats))
-                    qb.put((i, encs, rec))
+                    _put(qb, "qb", (i, encs, rec), root, i)
                 except BaseException as e:   # raised on the caller's thread
                     errors.append(e)
 
         def worker_c():
             while True:
-                item = qb.get()
+                item = _get(qb, "qb", root)
                 if item is None:
                     return
                 if errors:
                     continue
                 i, encs, rec = item
                 try:
-                    encs_all[i] = encs
-                    t0 = time.perf_counter()
-                    rec.sync()
-                    t1 = time.perf_counter()
-                    recs[i] = rec.arrays()[0]
-                    stats["c_sync_s"] += t1 - t0
-                    stats["c_fetch_s"] += time.perf_counter() - t1
+                    with span("cgic.pipe.c", parent=root, batch=i):
+                        encs_all[i] = encs
+                        rec.sync(stats, "c_sync_s")
+                        recs[i] = rec.arrays(stats, "c_fetch_s")[0]
                 except BaseException as e:
                     errors.append(e)
 
-        tb = threading.Thread(target=worker_b, daemon=True)
-        tc = threading.Thread(target=worker_c, daemon=True)
-        tb.start()
-        tc.start()
-        try:
-            for i in range(n):
-                if errors:
-                    break
-                t0 = time.perf_counter()
-                pend = self.encode_batch_async(batches[i], coarse_ratio,
-                                               medium_ratio,
-                                               device_pack=device_pack)
-                stats["a_upload_s"] += time.perf_counter() - t0
-                stats["a_upload_bytes"] += batches[i].nbytes
-                qa.put((i, pend))
-        finally:
-            qa.put(None)
-            tb.join()
-            tc.join()
-        stats["wall_s"] = time.perf_counter() - t_wall
+        with root:
+            tb = threading.Thread(target=worker_b, daemon=True)
+            tc = threading.Thread(target=worker_c, daemon=True)
+            tb.start()
+            tc.start()
+            try:
+                for i in range(n):
+                    if errors:
+                        break
+                    with span("cgic.pipe.a", stats, "a_upload_s", batch=i,
+                              bytes=batches[i].nbytes):
+                        pend = self.encode_batch_async(
+                            batches[i], coarse_ratio, medium_ratio,
+                            device_pack=device_pack)
+                    stats["a_upload_bytes"] += batches[i].nbytes
+                    _put(qa, "qa", (i, pend), root, i)
+            finally:
+                _put(qa, "qa", None, root)
+                tb.join()
+                tc.join()
         stats["threaded"] = 1.0
         self.last_pipeline_stats = dict(stats)
         if errors:
@@ -1092,14 +1127,18 @@ class CGICCodec:
                  device_pack: bool = False, stats: Optional[dict] = None
                  ) -> Tuple[np.ndarray, float, EncodedImage]:
         """Sender -> receiver round trip, through stream files in `out_dir`
-        when given. Returns (reconstruction [H, W, 3], bpp, bundle)."""
-        encoded = self.encode(image, coarse_ratio, medium_ratio,
-                              device_pack=device_pack, stats=stats)
-        if out_dir is not None:
-            t0 = time.perf_counter()
-            encoded.write(out_dir)
-            encoded = EncodedImage.read(out_dir, encoded.mode,
-                                        encoded.latent_hw, encoded.image_hw)
-            _acc(stats, "files_s", time.perf_counter() - t0)
-        rec = self.decode(encoded, stats=stats)
+        when given: a request's root span, cgic.codec.compress. `stats`
+        accumulates encode's and decode_batch's keys and 'files_s'. Returns
+        (reconstruction [H, W, 3], bpp, bundle)."""
+        with span("cgic.codec.compress", images=1):
+            encoded = self.encode(image, coarse_ratio, medium_ratio,
+                                  device_pack=device_pack, stats=stats)
+            if out_dir is not None:
+                with span("cgic.codec.files", stats, "files_s",
+                          bytes=encoded.num_bytes):
+                    encoded.write(out_dir)
+                    encoded = EncodedImage.read(out_dir, encoded.mode,
+                                                encoded.latent_hw,
+                                                encoded.image_hw)
+            rec = self.decode(encoded, stats=stats)
         return rec, encoded.bpp, encoded

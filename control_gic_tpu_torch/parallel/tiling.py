@@ -31,19 +31,18 @@ round otherwise than the whole group and flip a near-tie index.
 from __future__ import annotations
 
 import copy
-import os
 import queue
 import threading
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..codec import CGICCodec, EncodedImage, _Fetch, unpack_impl
+from ..codec import CGICCodec, EncodedImage, _Fetch, _get, _put, unpack_impl
 from ..coding.stream_pack import fused_to_bytes
 from ..ops.router import mode_from_ratios
+from ..utils.trace import span
 from .mesh import replica, same_device
 
 def codec_replica(codec: CGICCodec, device: torch.device) -> CGICCodec:
@@ -293,8 +292,10 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
 
     Streams and bpp equal compress_tiled(overlap=0)'s; the reconstruction
     differs only by the uint8 quantization (clip, * 255, truncate, as
-    cli.common.save_png) with out_uint8=True. CONTROL_GIC_PIPE_TRACE=1
-    prints each stage's start and end.
+    cli.common.save_png) with out_uint8=True. Each stage's work on an image
+    is a span (cgic.pipe.a, .b, .c; utils/trace.py) of the call's root
+    span, cgic.tiling.compress: a profiler trace shows the stages' timeline,
+    one lane a thread.
 
     device_unpack=True decodes the streams on the device
     (codec.decode_batch's device_unpack): the receiver's upload shrinks from
@@ -311,150 +312,106 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
     if device_unpack and codec._decode_tables is None:
         raise ValueError("device_unpack=True needs a device-decodable "
                          "Huffman table (code lengths in [1, MAX_LUT_BITS])")
-    trace = os.environ.get("CONTROL_GIC_PIPE_TRACE") == "1"
     stats = defaultdict(float)   # each stage writes its own keys
     stats["device_unpack"] = float(device_unpack)
-    t_run0 = time.perf_counter()
-
-    def _tr(msg):
-        if trace:
-            print(f"[pipe {time.perf_counter() - t_run0:7.3f}s] {msg}",
-                  flush=True)
-
-    images = list(images)
-    n = len(images)
-    mode = mode_from_ratios(coarse_ratio, medium_ratio)
-    rc, rm = float(coarse_ratio), float(medium_ratio)
-    out: List[Optional[Tuple]] = [None] * n
+    root = span("cgic.tiling.compress", stats, "wall_s")
     errors: List[BaseException] = []
-
-    # the plan: each image's padding and its tile offsets by shape, with the
-    # tile's index so that the bundles come back in grid order
-    plans = []
-    for image in images:
-        h0, w0, _ = image.shape
-        (pl, pr, pt, pb), _ = compute_padding(h0, w0)
-        tiles = tile_grid(h0 + pt + pb, w0 + pl + pr, tile)
-        groups: Dict[Tuple[int, int],
-                     List[Tuple[int, int, int]]] = defaultdict(list)
-        for t, (y, x, th, tw) in enumerate(tiles):
-            groups[(th, tw)].append((t, y, x))
-        plans.append(((pt, pb, pl, pr), h0, w0, dict(groups), len(tiles)))
 
     def stage_a(i):
         """The image up once; every tile group's encode + pack dispatched,
         its fetch enqueued behind it."""
-        t0 = time.perf_counter()
-        (pt, pb, pl, pr), _, _, groups, _ = plans[i]
-        _tr(f"A{i} start (pad+H2D)")
-        img_dev = codec._upload(np.pad(images[i], ((pt, pb), (pl, pr),
-                                                   (0, 0))))
-        bufs = []
-        for (th, tw), tyx in groups.items():
-            offs = tuple((y, x) for _, y, x in tyx)
-            bufs.append(((th, tw), tyx, offs, _Fetch(_encode_tiles(
-                codec, img_dev, rc, rm, offs, th, tw))))
-        _tr(f"A{i} dispatched")
-        stats["a_upload_s"] += time.perf_counter() - t0
+        with span("cgic.pipe.a", stats, "a_upload_s", parent=root, batch=i,
+                  bytes=images[i].nbytes):
+            (pt, pb, pl, pr), _, _, groups, _ = plans[i]
+            img_dev = codec._upload(np.pad(images[i], ((pt, pb), (pl, pr),
+                                                       (0, 0))))
+            bufs = []
+            for (th, tw), tyx in groups.items():
+                offs = tuple((y, x) for _, y, x in tyx)
+                bufs.append(((th, tw), tyx, offs, _Fetch(_encode_tiles(
+                    codec, img_dev, rc, rm, offs, th, tw))))
         stats["a_upload_bytes"] += images[i].nbytes
         return bufs
 
     def stage_b(i, bufs):
         """Fetch the packed words, frame and rebuild on the host, dispatch
         each group's decode + stitch into the canvas."""
+        with span("cgic.pipe.b", parent=root, batch=i):
+            return _stage_b(i, bufs)
+
+    def _stage_b(i, bufs):
         (pt, pb, pl, pr), h0, w0, groups, n_tiles = plans[i]
         h, w = h0 + pt + pb, w0 + pl + pr
         canvas = torch.zeros((h, w, 3), device=codec.device,
                              dtype=torch.uint8 if out_uint8
                              else torch.float32)
         bundles: List[Optional[EncodedImage]] = [None] * n_tiles
-        _tr(f"B{i} start (pack fetch)")
         for (th, tw), tyx, offs, fetch in bufs:
-            t0 = time.perf_counter()
-            fetch.sync()     # "encode still computing" apart from the copy
-            t1 = time.perf_counter()
-            buf = fetch.arrays()[0]
-            stats["b_sync_s"] += t1 - t0
-            stats["b_fetch_s"] += time.perf_counter() - t1
+            # "encode still computing" apart from the copy
+            fetch.sync(stats, "b_sync_s")
+            buf = fetch.arrays(stats, "b_fetch_s")[0]
             stats["b_fetch_bytes"] += buf.nbytes
-            _tr(f"B{i} pack fetched ({buf.nbytes >> 10} KB)")
-            t0 = time.perf_counter()
-            layout = codec._pack_layout(mode, th // 4, tw // 4)
-            encs = [EncodedImage(mode=mode, latent_hw=(th // 4, tw // 4),
-                                 image_hw=(th, tw),
-                                 streams=fused_to_bytes(buf, layout, j))
-                    for j in range(len(offs))]
-            for (t, _, _), e in zip(tyx, encs):
-                bundles[t] = e
-            if device_unpack:
-                flat, offtbl = codec._flat_stream_upload(encs)
-                stats["b_rebuild_s"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                canvas = _decode_stitch_unpack(
-                    codec, canvas, codec._upload(flat.view(np.int32)),
-                    codec._upload(offtbl), mode, offs, th, tw, out_uint8)
-                stats["b_h2d_bytes"] += flat.nbytes + offtbl.nbytes
-            else:
-                inds = [codec._rebuild(e)[0] for e in encs]
-                dec_in = codec._compact_decode_input(encs, inds)
-                stats["b_rebuild_s"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                canvas = _decode_stitch(codec, canvas,
-                                        codec._upload(dec_in.view(np.int16)),
-                                        mode, offs, th, tw, out_uint8)
-                stats["b_h2d_bytes"] += dec_in.nbytes
-            stats["b_h2d_dispatch_s"] += time.perf_counter() - t0
-        _tr(f"B{i} decode dispatched")
+            with span("cgic.coding.rebuild", stats, "b_rebuild_s",
+                      images=len(offs)):
+                with span("cgic.coding.frame", bytes=buf.nbytes,
+                          images=len(offs)):
+                    layout = codec._pack_layout(mode, th // 4, tw // 4)
+                    encs = [EncodedImage(mode=mode,
+                                         latent_hw=(th // 4, tw // 4),
+                                         image_hw=(th, tw),
+                                         streams=fused_to_bytes(buf, layout,
+                                                                j))
+                            for j in range(len(offs))]
+                for (t, _, _), e in zip(tyx, encs):
+                    bundles[t] = e
+                if device_unpack:
+                    flat, offtbl = codec._flat_stream_upload(encs)
+                else:
+                    inds = [codec._rebuild(e)[0] for e in encs]
+                    dec_in = codec._compact_decode_input(encs, inds)
+            with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
+                if device_unpack:
+                    canvas = _decode_stitch_unpack(
+                        codec, canvas, codec._upload(flat.view(np.int32)),
+                        codec._upload(offtbl), mode, offs, th, tw, out_uint8)
+                    stats["b_h2d_bytes"] += flat.nbytes + offtbl.nbytes
+                else:
+                    canvas = _decode_stitch(
+                        codec, canvas, codec._upload(dec_in.view(np.int16)),
+                        mode, offs, th, tw, out_uint8)
+                    stats["b_h2d_bytes"] += dec_in.nbytes
         return bundles, _Fetch(canvas)
 
     def stage_c(i, bundles, canvas):
         """Fetch the stitched reconstruction, unpad, count the bits."""
-        (pt, pb, pl, pr), h0, w0, _, _ = plans[i]
-        _tr(f"C{i} start (canvas fetch)")
-        t0 = time.perf_counter()
-        canvas.sync()        # "decode still computing" apart from the copy
-        t1 = time.perf_counter()
-        rec = canvas.arrays()[0]
-        stats["c_sync_s"] += t1 - t0
-        stats["c_fetch_s"] += time.perf_counter() - t1
-        stats["c_fetch_bytes"] += rec.nbytes
-        _tr(f"C{i} canvas fetched")
-        h, w = rec.shape[:2]
-        rec = rec[pt:h - pb if pb else h, pl:w - pr if pr else w]
-        bits = sum(e.num_bytes * 8 for e in bundles)
-        out[i] = (rec, bits / (h0 * w0), bundles)
-
-    def _finish(threaded: bool):
-        stats["threaded"] = float(threaded)
-        stats["wall_s"] = time.perf_counter() - t_run0
-        codec.last_pipeline_stats = dict(stats)
-
-    if not threads or n <= 1:
-        for i in range(n):
-            stage_c(i, *stage_b(i, stage_a(i)))
-        _finish(False)
-        return out
-
-    qa: "queue.Queue" = queue.Queue(maxsize=1)
-    qb: "queue.Queue" = queue.Queue(maxsize=1)
+        with span("cgic.pipe.c", parent=root, batch=i):
+            (pt, pb, pl, pr), h0, w0, _, _ = plans[i]
+            # "decode still computing" apart from the copy
+            canvas.sync(stats, "c_sync_s")
+            rec = canvas.arrays(stats, "c_fetch_s")[0]
+            stats["c_fetch_bytes"] += rec.nbytes
+            h, w = rec.shape[:2]
+            rec = rec[pt:h - pb if pb else h, pl:w - pr if pr else w]
+            bits = sum(e.num_bytes * 8 for e in bundles)
+            out[i] = (rec, bits / (h0 * w0), bundles)
 
     def worker_b():
         while True:
-            item = qa.get()
+            item = _get(qa, "qa", root)
             if item is None:
-                qb.put(None)
+                _put(qb, "qb", None, root)
                 return
             if errors:
                 continue
             i, bufs = item
             try:
-                qb.put((i, *stage_b(i, bufs)))
+                _put(qb, "qb", (i, *stage_b(i, bufs)), root, i)
             except BaseException as e:   # raised on the caller's thread
                 errors.append(e)
 
     def worker_c():
         while True:
-            item = qb.get()
+            item = _get(qb, "qb", root)
             if item is None:
                 return
             if errors:
@@ -464,21 +421,52 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
             except BaseException as e:
                 errors.append(e)
 
-    tb = threading.Thread(target=worker_b, daemon=True)
-    tc = threading.Thread(target=worker_c, daemon=True)
-    tb.start()
-    tc.start()
-    try:
-        for i in range(n):
-            if errors:
-                break
-            qa.put((i, stage_a(i)))
-    finally:
-        # unblock the workers even when stage A raised
-        qa.put(None)
-        tb.join()
-        tc.join()
-    _finish(True)
+    with root:
+        images = list(images)
+        n = len(images)
+        root.attrs["images"] = n
+        mode = mode_from_ratios(coarse_ratio, medium_ratio)
+        rc, rm = float(coarse_ratio), float(medium_ratio)
+        out: List[Optional[Tuple]] = [None] * n
+
+        # the plan: each image's padding and its tile offsets by shape, with
+        # the tile's index so that the bundles come back in grid order
+        plans = []
+        for image in images:
+            h0, w0, _ = image.shape
+            (pl, pr, pt, pb), _ = compute_padding(h0, w0)
+            tiles = tile_grid(h0 + pt + pb, w0 + pl + pr, tile)
+            groups: Dict[Tuple[int, int],
+                         List[Tuple[int, int, int]]] = defaultdict(list)
+            for t, (y, x, th, tw) in enumerate(tiles):
+                groups[(th, tw)].append((t, y, x))
+            plans.append(((pt, pb, pl, pr), h0, w0, dict(groups),
+                          len(tiles)))
+
+        threaded = threads and n > 1
+        if not threaded:
+            for i in range(n):
+                stage_c(i, *stage_b(i, stage_a(i)))
+        else:
+            qa: "queue.Queue" = queue.Queue(maxsize=1)
+            qb: "queue.Queue" = queue.Queue(maxsize=1)
+            tb = threading.Thread(target=worker_b, daemon=True)
+            tc = threading.Thread(target=worker_c, daemon=True)
+            tb.start()
+            tc.start()
+            try:
+                for i in range(n):
+                    if errors:
+                        break
+                    bufs = stage_a(i)
+                    _put(qa, "qa", (i, bufs), root, i)
+            finally:
+                # unblock the workers even when stage A raised
+                _put(qa, "qa", None, root)
+                tb.join()
+                tc.join()
+    stats["threaded"] = float(threaded)
+    codec.last_pipeline_stats = dict(stats)
     if errors:
         raise errors[0]
     return out

@@ -59,6 +59,7 @@ from ..ops import norm_conv
 from ..parallel.multihost import (all_reduce_, all_reduce_mean, capturable,
                                   group_key)
 from ..utils.programs import CUDAGraphs, Programs
+from ..utils.trace import span
 from .losses import discriminator_loss, generator_loss
 from .state import (TrainConfig, TrainState, apply_gradients, ema_apply,
                     ema_weight)
@@ -214,9 +215,11 @@ class Trainer:
     @staticmethod
     def to_input(state: TrainState, x) -> torch.Tensor:
         """NHWC batch -> NCHW float32 on the state's device."""
-        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-        return x.to(state.device, torch.float32).permute(0, 3, 1, 2
-                                                          ).contiguous()
+        with span("cgic.train.input"):
+            x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                                else x)
+            return x.to(state.device, torch.float32).permute(
+                0, 3, 1, 2).contiguous()
 
     def forward_losses(self, state: TrainState, x: torch.Tensor,
                        g_scale: float = 1.0, adaptive: bool = False):
@@ -280,21 +283,24 @@ class Trainer:
         """One fused step; updates `state` in place and returns it with the
         step's metrics (detached scalar tensors, read on the host only when
         logged). Before disc_start the adaptive weight is not computed: it
-        would multiply a zero."""
-        x = self.to_input(state, x)
-        on = self._adversarial_on(state)
-        ema_w = torch.full((), ema_weight(state.ema_num_updates,
-                                          self.train_cfg.ema_decay),
-                           dtype=torch.float32, device=state.device)
-        metrics = self._run(state, ("train", on),
-                            functools.partial(_step, self.train_cfg, state,
-                                              on, group=self.group),
-                            x, ema_w)
-        if self._programs_for(state).backend is not None:
-            # a replay wrote these without bumping their versions
-            torch.autograd.graph.increment_version(state.written_tensors())
-        state.ema_num_updates += 1
-        state.step += 1
+        would multiply a zero. The step is a root span, cgic.train.step."""
+        with span("cgic.train.step", step=state.step):
+            x = self.to_input(state, x)
+            on = self._adversarial_on(state)
+            ema_w = torch.full((), ema_weight(state.ema_num_updates,
+                                              self.train_cfg.ema_decay),
+                               dtype=torch.float32, device=state.device)
+            metrics = self._run(state, ("train", on),
+                                functools.partial(_step, self.train_cfg,
+                                                  state, on,
+                                                  group=self.group),
+                                x, ema_w)
+            if self._programs_for(state).backend is not None:
+                # a replay wrote these without bumping their versions
+                torch.autograd.graph.increment_version(
+                    state.written_tensors())
+            state.ema_num_updates += 1
+            state.step += 1
         return state, metrics
 
     def eval_step(self, state: TrainState, x) -> Metrics:

@@ -68,7 +68,6 @@ from __future__ import annotations
 import logging
 import os
 import threading
-import time
 from typing import Callable, List, Optional
 
 import torch
@@ -77,6 +76,7 @@ from .. import ops
 from ..coding import huffman_decode_device
 from ..kernels import build
 from ..ops import attention, fused_norm, norm_conv
+from .trace import span
 
 _LOG = logging.getLogger(__name__)
 
@@ -242,7 +242,9 @@ class Programs:
     `_encode_fns`, `_encode_pack_fns`, `_decode_fns` and the tile programs,
     the capture backend (None: every call runs eagerly), the lock, and what
     the captures took: `captured` programs and `capture_s` seconds (warm-up
-    included)."""
+    included), the sum of the cgic.programs.capture spans. A program's key
+    (and its lookup) is a cgic.programs.key span, a replay a
+    cgic.programs.replay span."""
 
     def __init__(self, model: Optional[torch.nn.Module], backend=None):
         self.model = model
@@ -268,17 +270,20 @@ class Programs:
         if self.backend is None:
             return fn(*inputs)
         with self.lock:
-            full = (key, tuple((tuple(x.shape), x.dtype) for x in inputs),
-                    call_state(), self._weights_generation())
-            prog = cache.get(full)
+            with span("cgic.programs.key"):
+                full = (key, tuple((tuple(x.shape), x.dtype)
+                                   for x in inputs),
+                        call_state(), self._weights_generation())
+                prog = cache.get(full)
             if prog is not None:
-                return prog(*inputs)
-            t0 = time.perf_counter()
-            prog = Program(fn, self.backend)
-            out = prog(*inputs)
+                with span("cgic.programs.replay"):
+                    return prog(*inputs)
+            with span("cgic.programs.capture") as sp:
+                prog = Program(fn, self.backend)
+                out = prog(*inputs)
             cache[full] = prog
             self.captured += 1
-            self.capture_s += time.perf_counter() - t0
+            self.capture_s += sp.seconds
             if _LOG.isEnabledFor(logging.INFO):
                 _LOG.info("captured program %s: %s", key, self.stats())
             return out

@@ -33,6 +33,7 @@ import control_gic_tpu_torch.coding.huffman_device
 import control_gic_tpu_torch.coding.stream_pack
 import control_gic_tpu_torch.coding.huffman_decode_device
 import control_gic_tpu_torch.utils.programs, control_gic_tpu_torch.utils.metrics
+import control_gic_tpu_torch.utils.trace
 import chip_smoke
 """
 CHECK = """
