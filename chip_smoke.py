@@ -28,8 +28,9 @@ Phases, each printing a line of its own:
      kernels per image, programs captured, capture seconds, memory
      reserved and the shared pool's bytes);
   5. Kodak path: the same codec on 512x768 (Kodak-shape) images in all 7
-     modes, where the chained norm+conv and moment kernels engage, with the
-     launch counts per image, graphs against eager as in phase 4, and a
+     modes, where the chained norm+conv and moment kernels engage and the
+     decoder's unchained SpatialNorms run the moment pass and the apply
+     kernel (the default dispatch), with the launch counts per image, graphs against eager as in phase 4, and a
      profile of one round trip each way;
   6. f32 parity at 256x256: the card (kernels) against the CPU (plain
      versions), same weights;
@@ -53,8 +54,9 @@ Phases, each printing a line of its own:
      with the same checks, their first step's gradients against the plain
      versions (logged), ms per step and profiles; and the train CLI on PNGs
      when PIL is installed;
-  9. 256x256 with CONTROL_GIC_FUSED_NORM=1: the phase-4 round trip with the
-     SpatialNorm apply kernel, launch counts and a profile;
+  9. 256x256 with CONTROL_GIC_FUSED_NORM=1: the phase-4 round trip under
+     the switch (the default's launches: every norm there has a row
+     block), launch counts and a profile;
  10. high-res tiled codec: cli/infer_highres.main on a 1356x2040 PNG (the
      DIV2K shape class; the CLI crops it to 1344x2032, 6 tiles of 768 px in 4
      shape groups) at full width in bf16 through the CLI's default path, the
@@ -251,7 +253,7 @@ CHAIN_GRAD_SHAPES = [("gn", 256, 384, 256, 256, True),
 # the moment pass's inputs on the 512x768 path: (B, C, H, W), bf16
 MOMENT_SHAPES = [(1, 128, 512, 768), (1, 128, 256, 384), (1, 256, 256, 384),
                  (1, 256, 512, 768)]
-# the SpatialNorm apply kernel's inputs under CONTROL_GIC_FUSED_NORM=1:
+# the SpatialNorm apply kernel's inputs at the decoder's unchained norms:
 # (B, C, H, W, swish, dtype); a 768-px tile's decoder mids and their
 # attention norm, the 768x496 tile's level-1 blocks, the 256x256 path's
 # mids and level 0, and f32
@@ -1126,20 +1128,24 @@ def launches_of(**counts) -> dict:
 
 
 # launches per image: at 256x256 the encoder's head_fine mid and the
-# decoder's three mids attend (4096 tokens) and nothing chains; at 512x768
-# add the encoder's level-3 attentions and head_medium mid and the decoder's
-# level-3 attentions, and the chained trunks (encoder levels 0-1 in the
-# GroupNorm form, decoder levels 1-0 and norm_out in the SpatialNorm form)
+# decoder's three mids attend (4096 tokens) and nothing chains, so each of
+# the decoder's 49 SpatialNorms (3 mids x 5, the trunk's 15 blocks x 2, 3
+# level-3 attention norms, norm_out) runs the moment pass and the apply
+# kernel; at 512x768 add the encoder's level-3 attentions and head_medium
+# mid and the decoder's level-3 attentions, and the chained trunks (encoder
+# levels 0-1 in the GroupNorm form, decoder levels 1-0 and norm_out in the
+# SpatialNorm form), which leave the moment pass and the apply kernel 36 of
+# the decoder's SpatialNorms (the mids' 15, level 4's 6, level 3's 9 and
+# level 2's 6, under the 9M-element gate)
 PER_IMAGE = {
-    IMAGE: launches_of(flash_attn_fwd=4),
+    IMAGE: launches_of(flash_attn_fwd=4, gn_moments=49,
+                       spatial_norm_apply=49),
     KODAK: launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
-                       gn_moments=4),
+                       gn_moments=40, spatial_norm_apply=36),
 }
-# 256x256 with CONTROL_GIC_FUSED_NORM=1: each of the decoder's 49
-# SpatialNorms (3 mids x 5, the trunk's 15 blocks x 2, 3 level-3 attention
-# norms, norm_out) runs the moment pass and the apply kernel
-PER_IMAGE_FUSED_NORM = launches_of(flash_attn_fwd=4, gn_moments=49,
-                                   spatial_norm_apply=49)
+# 256x256 with CONTROL_GIC_FUSED_NORM=1: the same launches, every norm's
+# shape having a row block
+PER_IMAGE_FUSED_NORM = PER_IMAGE[IMAGE]
 # launches per 256x256 batch-2 training step: the four attentions run as
 # FlashAttentionFn (lse forward, dk/dv and dq backward); nothing chains
 PER_TRAIN_STEP = launches_of(flash_attn_fwd_lse=4, flash_attn_bwd_dkdv=4,
@@ -1531,41 +1537,41 @@ TILED_SETTINGS = {
 #  - default: the chain where a trunk run of blocks reaches 9M elements per
 #    sample with W a multiple of 16 (the encoder's levels 0-2 at 768x768,
 #    levels 0-1 at 576x768, level 0 at 496 px wide; the decoder's levels
-#    2-0 and norm_out, 1-0, 0), the moment pass at each chain's start;
+#    2-0 and norm_out, 1-0, 0), the moment pass at each chain's start, and
+#    the moment pass and the apply kernel at every other SpatialNorm of the
+#    decoder (49 less the chain's);
 #  - CONTROL_GIC_CHAIN=0 + CONTROL_GIC_NORM_CONV=1: each of those convs,
 #    plus the encoder fine head (2 blocks + conv_out, 192x192x256) and the
 #    decoder mids (12 convs, 9.4-18.9M elements) as per-call ops, each with
-#    its moment pass (48 calls on a 768x768 tile);
-#  - CONTROL_GIC_FUSED_NORM=1: the default's chain, and the moment pass and
-#    the apply kernel at every other SpatialNorm of the decoder.
+#    its moment pass (48 calls on a 768x768 tile), and the default's
+#    SpatialNorms that no per-call op takes;
+#  - CONTROL_GIC_FUSED_NORM=1: the default's launches (its switched path
+#    where a row block divides the plane, the default's elsewhere: level 4
+#    of the 576x496 tile).
 PER_TILE = {
     "default": {
-        (768, 768): launches_of(flash_attn_fwd=10, chain_gn=12, chain_sn=19,
-                                gn_moments=6),
-        (768, 496): launches_of(flash_attn_fwd=4, chain_gn=4, chain_sn=7,
-                                gn_moments=2),
-        (576, 768): launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
-                                gn_moments=4),
-        (576, 496): launches_of(chain_gn=4, chain_sn=7, gn_moments=2)},
-    "chain0_norm_conv1": {
-        (768, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=17,
-                                norm_conv_sn=31, gn_moments=48),
-        (768, 496): launches_of(flash_attn_fwd=4, norm_conv_gn=4,
-                                norm_conv_sn=7, gn_moments=11),
-        (576, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=8,
-                                norm_conv_sn=25, gn_moments=33),
-        (576, 496): launches_of(norm_conv_gn=4, norm_conv_sn=7,
-                                gn_moments=11)},
-    "fused_norm1": {
         (768, 768): launches_of(flash_attn_fwd=10, chain_gn=12, chain_sn=19,
                                 gn_moments=36, spatial_norm_apply=30),
         (768, 496): launches_of(flash_attn_fwd=4, chain_gn=4, chain_sn=7,
                                 gn_moments=44, spatial_norm_apply=42),
         (576, 768): launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
                                 gn_moments=40, spatial_norm_apply=36),
-        (576, 496): launches_of(chain_gn=4, chain_sn=7, gn_moments=38,
-                                spatial_norm_apply=36)},
+        (576, 496): launches_of(chain_gn=4, chain_sn=7, gn_moments=44,
+                                spatial_norm_apply=42)},
+    "chain0_norm_conv1": {
+        (768, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=17,
+                                norm_conv_sn=31, gn_moments=66,
+                                spatial_norm_apply=18),
+        (768, 496): launches_of(flash_attn_fwd=4, norm_conv_gn=4,
+                                norm_conv_sn=7, gn_moments=53,
+                                spatial_norm_apply=42),
+        (576, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=8,
+                                norm_conv_sn=25, gn_moments=57,
+                                spatial_norm_apply=24),
+        (576, 496): launches_of(norm_conv_gn=4, norm_conv_sn=7,
+                                gn_moments=53, spatial_norm_apply=42)},
 }
+PER_TILE["fused_norm1"] = PER_TILE["default"]
 ALL_SWITCHES = {"CONTROL_GIC_CHAIN": "0", "CONTROL_GIC_NORM_CONV": "1",
                 "CONTROL_GIC_FUSED_NORM": "1"}
 
@@ -3542,10 +3548,11 @@ def main() -> None:
         phase_data_parallel(dev, workdir)
 
     # each kernel's row at its main path's shape, and its launches there:
-    # the inference kernels on the Kodak round trip, the training kernels
-    # in the 3 f32 training steps, the apply kernel and the per-call op on
-    # the tiled codec under their switches, the scan kernel (on the Kodak
-    # fine streams) in phase 13's round trips of the default codec
+    # the inference kernels (the moment pass and the apply kernel among
+    # them) on the Kodak round trip, the training kernels in the 3 f32
+    # training steps, the per-call op on the tiled codec under its
+    # switches, the scan kernel (on the Kodak fine streams) in phase 13's
+    # round trips of the default codec
     train_row = lambda name: next(r for r in rows if r["kernel"] == name
                                   and r["shape"] == [2, 4096, 4096, 512]
                                   and r["dtype"] == "float32")
@@ -3569,8 +3576,7 @@ def main() -> None:
                      "flash_attn_bwd_dq": train_launches["flash_attn_bwd_dq"],
                      "norm_conv_chain": launches["chain_gn"] + launches["chain_sn"],
                      "gn_moments": launches["gn_moments"],
-                     "spatial_norm_apply":
-                         tiled["fused_norm1"]["spatial_norm_apply"],
+                     "spatial_norm_apply": launches["spatial_norm_apply"],
                      "norm_conv": nc["norm_conv_gn"] + nc["norm_conv_sn"],
                      "huffman_scan": unpack["launches"]}
     kernels = [dict(name=name, **KERNELS[name],

@@ -9,7 +9,8 @@ proj_out, nin_shortcut, downsample.conv, upsample.conv), weights OIHW.
 
   - GroupNorm32: 32 groups, eps 1e-6, computed in f32;
   - SpatialNorm: GroupNorm(f) * conv_y(zq) + conv_b(zq), zq nearest-resized,
-    through ops.fused_norm.spatial_norm (the apply kernel under
+    through ops.fused_norm.spatial_norm (the moment pass and the apply
+    kernel on the card where no gradient is recorded, and under
     CONTROL_GIC_FUSED_NORM);
   - ResnetBlock: norm -> swish -> 3x3 conv, twice, 1x1 nin_shortcut on a
     channel change; SpatialNorm norms when zq_cond; dropout before conv2

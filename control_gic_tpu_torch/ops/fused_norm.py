@@ -15,7 +15,7 @@ tensors, inside `_GnMomentsFn` where x needs a gradient, and runs
 `gn_moments_reference` for CPU tensors.
 
 `spatial_norm` is JAX's dispatch, read at call time, with the H100 in the
-TPU's place:
+TPU's place, and a default of its own on the card:
   - CONTROL_GIC_FUSED_NORM set: the moment pass, then the apply kernel
     kernels/spatial_norm_apply.cu (JAX `_fused_forward`), which folds the
     moments into the group stats itself (two launches in all). Its plain
@@ -24,7 +24,14 @@ TPU's place:
     of operations on the CPU;
   - CONTROL_GIC_STATS_KERNEL set: the moment pass, then the torch fold and
     that torch apply (JAX `_stats_only_forward`);
-  - otherwise, or where `_row_block` finds no block, `spatial_norm_reference`.
+  - otherwise, or where `_row_block` finds no block: the moment pass and
+    the apply kernel for a CUDA tensor that records no gradient, where the
+    two kernels take the shape (`kernels_take`); `spatial_norm_reference`
+    for the rest. The reference is some 25 elementwise and reduce launches
+    on the card, which XLA fuses into one pass on a TPU; the two kernels
+    take 4.7-34x less device time at each of the 25 SpatialNorm shapes the
+    codec's benchmark cells run (PERF.md §5). Under grad the backward
+    reruns the reference, so the forward runs it too.
 Both switched paths run inside `_SpatialNormFn` (JAX `_make_fused`) where a
 gradient is needed; its backward differentiates `spatial_norm_reference`.
 """
@@ -46,6 +53,11 @@ EPS = 1e-6
 # SpatialNorm apply (each wrapper adds one per launch). A caller resets them
 # to 0 and reads them back.
 KERNEL_LAUNCHES = {"gn_moments": 0, "spatial_norm_apply": 0}
+# Calls of `spatial_norm` that ran spatial_norm_reference where
+# `use_kernel` holds (a CUDA tensor outside plain_versions()): under grad,
+# with use_fused=False, or a shape the kernels do not take. Counted as the
+# launches are.
+PLAIN_CALLS = {"spatial_norm": 0}
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -92,6 +104,39 @@ _APPLY_ARGS = struct.Struct("11q")     # f, zq, mom, par, out, B, C, HW,
                                        # dtype, swish, stream
 
 
+def _refusal(f: torch.Tensor, zq_r=None):
+    """The CUDA kernels' limits on their inputs, the one place they are
+    stated: None where the moment pass (zq_r None) or the moment pass and
+    the apply kernel take them, else the (exception type, message) their
+    wrappers raise. f: f32 or bf16, a non-empty contiguous [B, C, H, W] with
+    B up to 65535; for the apply, C a multiple of 32 up to 2048 and zq_r a
+    contiguous [B, 4, H, W] in f's dtype on f's device, both 16-byte
+    aligned."""
+    if f.dtype not in _DTYPE_CODE:
+        return TypeError, f"takes float32 or bfloat16, got {f.dtype}"
+    if f.dim() != 4 or f.numel() == 0:
+        return ValueError, (f"expected a non-empty [B, C, H, W] tensor, got "
+                            f"{tuple(f.shape)}")
+    b, c, h, w = f.shape
+    if b > 65535:
+        return ValueError, f"batch {b} is above the grid limit 65535"
+    if not f.is_contiguous():
+        return ValueError, "needs a contiguous NCHW tensor"
+    if zq_r is None:
+        return None
+    if c % GROUPS or c > 64 * GROUPS:
+        return ValueError, (f"takes C a multiple of 32 up to 2048, got "
+                            f"{tuple(f.shape)}")
+    if zq_r.shape != (b, 4, h, w) or zq_r.dtype != f.dtype:
+        return ValueError, (f"zq_r: expected [{b}, 4, {h}, {w}] {f.dtype}, "
+                            f"got {tuple(zq_r.shape)} {zq_r.dtype}")
+    if (zq_r.device != f.device or not zq_r.is_contiguous()
+            or (f.data_ptr() | zq_r.data_ptr()) % 16):
+        return ValueError, (f"f and zq_r: need contiguous, 16-byte aligned "
+                            f"tensors on {f.device}")
+    return None
+
+
 def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA moment kernel. CUDA tensors only: anything the kernel
     does not take raises, and a failed build or launch raises."""
@@ -99,25 +144,17 @@ def gn_moments_kernel(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("gn_moments_kernel launches a CUDA kernel and takes "
                          "CUDA tensors only; use gn_moments() or "
                          "gn_moments_reference() for CPU tensors")
-    code = _DTYPE_CODE.get(x.dtype)
-    if code is None:
-        raise TypeError(f"gn_moments_kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
     if x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("gn_moments_kernel records no gradient; under "
                            "grad call gn_moments()")
-    if x.dim() != 4 or x.numel() == 0:
-        raise ValueError(f"expected a non-empty [B, C, H, W] tensor, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("gn_moments_kernel needs a contiguous NCHW tensor")
+    refusal = _refusal(x)
+    if refusal:
+        raise refusal[0](f"gn_moments_kernel: {refusal[1]}")
     b, c, h, w = x.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} is above the kernel's grid limit 65535")
     mom = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
     rc = _launch(x, build.function("gn_moments", "cgic_gn_moments"),
                  _MOMENT_ARGS, x.data_ptr(), mom.data_ptr(), b, c, h * w,
-                 code)
+                 _DTYPE_CODE[x.dtype])
     if rc:
         build.check(build.load("gn_moments"), rc, "gn_moments")
     build.count_launch(KERNEL_LAUNCHES, "gn_moments")
@@ -378,32 +415,17 @@ def spatial_norm_apply_kernel(f: torch.Tensor, zq_r: torch.Tensor,
         raise ValueError("spatial_norm_apply_kernel launches a CUDA kernel and "
                          "takes CUDA tensors only; use spatial_norm() for CPU "
                          "tensors")
-    code = _DTYPE_CODE.get(f.dtype)
-    if code is None:
-        raise TypeError(f"spatial_norm_apply_kernel takes float32 or bfloat16,"
-                        f" got {f.dtype}")
     if torch.is_grad_enabled() and (
             f.requires_grad or zq_r.requires_grad or mom.requires_grad
             or gs.requires_grad or gb.requires_grad or wy.requires_grad
             or by.requires_grad or wb.requires_grad or bb.requires_grad):
         raise RuntimeError("spatial_norm_apply_kernel records no gradient; "
                            "under grad call spatial_norm()")
-    if f.dim() != 4 or f.numel() == 0:
-        raise ValueError(f"expected a non-empty [B, C, H, W] tensor, got "
-                         f"{tuple(f.shape)}")
+    refusal = _refusal(f, zq_r)
+    if refusal:
+        raise refusal[0](f"spatial_norm_apply_kernel: {refusal[1]}")
     b, c, h, w = f.shape
-    if c % GROUPS or c > 64 * GROUPS or b > 65535:
-        raise ValueError(f"spatial_norm_apply_kernel takes C a multiple of 32 "
-                         f"up to 2048 and B up to 65535, got {tuple(f.shape)}")
     dev = f.device
-    if zq_r.shape != (b, 4, h, w) or zq_r.dtype != f.dtype:
-        raise ValueError(f"zq_r: expected [{b}, 4, {h}, {w}] {f.dtype}, got "
-                         f"{tuple(zq_r.shape)} {zq_r.dtype}")
-    fp, zp = f.data_ptr(), zq_r.data_ptr()
-    if (zq_r.device != dev or not (f.is_contiguous() and zq_r.is_contiguous())
-            or (fp | zp) % 16):
-        raise ValueError(f"f and zq_r: need contiguous, 16-byte aligned "
-                         f"tensors on {dev}")
     if (mom.shape != (b, 2, c) or mom.dtype != torch.float32
             or mom.device != dev or not mom.is_contiguous()):
         raise ValueError(f"mom: expected a contiguous [{b}, 2, {c}] float32 "
@@ -416,8 +438,9 @@ def spatial_norm_apply_kernel(f: torch.Tensor, zq_r: torch.Tensor,
     out = torch.empty_like(f)
     rc = _launch(f, build.function("spatial_norm_apply",
                                    "cgic_spatial_norm_apply"), _APPLY_ARGS,
-                 fp, zp, mom.data_ptr(), par.data_ptr(), out.data_ptr(), b,
-                 c, h * w, code, int(act_swish))
+                 f.data_ptr(), zq_r.data_ptr(), mom.data_ptr(),
+                 par.data_ptr(), out.data_ptr(), b, c, h * w,
+                 _DTYPE_CODE[f.dtype], int(act_swish))
     if rc:
         build.check(build.load("spatial_norm_apply"), rc,
                     "spatial_norm_apply")
@@ -470,8 +493,9 @@ class _SpatialNormFn(torch.autograd.Function):
 
 def fused_norms_enabled() -> bool:
     """JAX `fused_norms_enabled`: CONTROL_GIC_FUSED_NORM set to any
-    non-empty value, read at call time. Off by default: in JAX it is opt-in
-    on the TPU, and the port keeps that rule on the H100."""
+    non-empty value, read at call time. Off by default, as in JAX. On the
+    card the default dispatch takes the same kernels where no gradient is
+    recorded, so there the switch adds them under grad (_SpatialNormFn)."""
     return bool(os.environ.get("CONTROL_GIC_FUSED_NORM"))
 
 
@@ -481,23 +505,40 @@ def stats_kernel_enabled() -> bool:
     return bool(os.environ.get("CONTROL_GIC_STATS_KERNEL"))
 
 
+def kernels_take(f: torch.Tensor, zq_r: torch.Tensor) -> bool:
+    """Whether the moment pass and the apply kernel take f and zq_r (zq_r
+    already in f's dtype): `_refusal` finds nothing."""
+    return _refusal(f, zq_r) is None
+
+
 def spatial_norm(f: torch.Tensor, zq_r: torch.Tensor, gn_scale: torch.Tensor,
                  gn_bias: torch.Tensor, wy: torch.Tensor, by: torch.Tensor,
                  wb: torch.Tensor, bb: torch.Tensor, act_swish: bool = False,
                  use_fused=None) -> torch.Tensor:
     """SpatialNorm (+ optional swish), JAX `spatial_norm`: the apply kernel
     under CONTROL_GIC_FUSED_NORM (or use_fused=True), the moment pass with a
-    torch apply under CONTROL_GIC_STATS_KERNEL, spatial_norm_reference
-    otherwise; both switches need a `_row_block` for f's shape. f:
-    [B, C, H, W]; zq_r: [B, Z, H, W], cast to f's dtype on the switched
+    torch apply under CONTROL_GIC_STATS_KERNEL, both where `_row_block`
+    finds a block for f's shape. Otherwise, with use_fused=None, the moment
+    pass and the apply kernel where `use_kernel(f)` holds, no gradient is
+    recorded and `kernels_take` holds; spatial_norm_reference for the rest.
+    f: [B, C, H, W]; zq_r: [B, Z, H, W], cast to f's dtype on the kernels'
     paths; wy, wb: [C, Z]."""
     admissible = _row_block(f.shape[2] * f.shape[3], f.shape[1]) > 0
-    if use_fused is None:
+    default = use_fused is None
+    if default:
         use_fused = fused_norms_enabled() and admissible
-    if not (use_fused or (stats_kernel_enabled() and admissible)):
-        return spatial_norm_reference(f, zq_r, gn_scale, gn_bias, wy, by, wb,
-                                      bb, act_swish)
-    args = (f, zq_r.to(f.dtype), gn_scale, gn_bias, wy, by, wb, bb)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _SpatialNormFn.apply(act_swish, not use_fused, *args)
-    return _fused_forward(*args, act_swish, not use_fused)
+    stats_only = not use_fused and stats_kernel_enabled() and admissible
+    on_card = use_kernel(f)
+    if use_fused or stats_only or (default and on_card):
+        args = (f, zq_r.to(f.dtype), gn_scale, gn_bias, wy, by, wb, bb)
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+        if use_fused or stats_only:
+            if grad:
+                return _SpatialNormFn.apply(act_swish, stats_only, *args)
+            return _fused_forward(*args, act_swish, stats_only)
+        if not grad and kernels_take(f, args[1]):
+            return _fused_forward(*args, act_swish, False)
+    if on_card:
+        build.count_launch(PLAIN_CALLS, "spatial_norm")
+    return spatial_norm_reference(f, zq_r, gn_scale, gn_bias, wy, by, wb, bb,
+                                  act_swish)

@@ -22,9 +22,10 @@ can put a stand-in in its place. With no backend (`graphs=False`, or a codec
 on the CPU) every call runs eagerly, as under `jax.disable_jit()`.
 
 Launch counts: the kernel wrappers count at each call
-(`kernels.build.count_launch`), and a replay calls no wrapper. So a program
-records the counter delta of its capture, takes it back (the warm-up and the
-capture together are one call) and adds it at each replay
+(`kernels.build.count_launch`; so does `fused_norm.spatial_norm` where it
+runs its reference on a CUDA tensor), and a replay calls no wrapper. So a
+program records the counter delta of its capture, takes it back (the
+warm-up and the capture together are one call) and adds it at each replay
 (`build.add_launches`): the counts with graphs equal the counts without.
 
 Memory: the programs of one codec share one memory pool. A pool for each
@@ -87,7 +88,7 @@ SWITCHES = ("CONTROL_GIC_FUSED_NORM", "CONTROL_GIC_STATS_KERNEL",
             "CONTROL_GIC_FLASH_BWD")
 
 _COUNTERS = (attention.KERNEL_LAUNCHES, norm_conv.KERNEL_LAUNCHES,
-             fused_norm.KERNEL_LAUNCHES,
+             fused_norm.KERNEL_LAUNCHES, fused_norm.PLAIN_CALLS,
              huffman_decode_device.KERNEL_LAUNCHES)
 
 

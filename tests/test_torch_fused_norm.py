@@ -254,6 +254,120 @@ def test_dispatch_keeps_reference_without_a_row_block(monkeypatch):
     assert torch.equal(got, want)
 
 
+def _no_switch(monkeypatch):
+    for name in ("CONTROL_GIC_FUSED_NORM", "CONTROL_GIC_STATS_KERNEL"):
+        monkeypatch.delenv(name, raising=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act_swish", [True, False], ids=["swish", "plain"])
+def test_default_takes_the_kernels_without_grad(cpu_kernels, act_swish,
+                                                dtype, monkeypatch):
+    """No switch set and no gradient recorded, with the kernel path taken
+    as on the card: one moment pass and one apply, nothing counted as a
+    reference call, and the output within the dtype's tolerance of
+    spatial_norm_reference: f32 within 1e-5 of the output scale; bf16
+    within one bf16 ulp of the output scale of the formula on f's f32
+    values (the apply rounds once) and within the card tests' 2e-2 of the
+    bf16 formula (which rounds at each of its steps)."""
+    _no_switch(monkeypatch)
+    a = _inputs(5, 2, 16, 24, 128)
+    args = _port_args(a, dtype)
+    plain = dict(tfn.PLAIN_CALLS)
+    with torch.no_grad():
+        got = tfn.spatial_norm(*args, act_swish=act_swish)
+    assert cpu_kernels == {"gn_moments": 1, "spatial_norm_apply": 1}
+    assert tfn.PLAIN_CALLS == plain
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 128, 16,
+                                                                 24)
+    exact = tfn.spatial_norm_reference(args[0].float(), args[1].float(),
+                                       *args[2:], act_swish=act_swish)
+    _close(got, nhwc(exact), dtype)
+    want = tfn.spatial_norm_reference(*args, act_swish=act_swish)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert (got.float() - want.float()).abs().max() <= tol * max(
+        1.0, float(want.float().abs().max()))
+
+
+def test_default_keeps_the_reference_under_grad(cpu_kernels, monkeypatch):
+    """Where a gradient is recorded the default dispatch runs
+    spatial_norm_reference, launches nothing and counts one reference
+    call; its gradient is the reference's own."""
+    _no_switch(monkeypatch)
+    a = _inputs(6, 1, 16, 16, 64)
+    leaves = [t.requires_grad_() for t in _port_args(a, "float32")]
+    plain = tfn.PLAIN_CALLS["spatial_norm"]
+    got = tfn.spatial_norm(*leaves, act_swish=True)
+    assert cpu_kernels == {"gn_moments": 0, "spatial_norm_apply": 0}
+    assert tfn.PLAIN_CALLS["spatial_norm"] == plain + 1
+    assert "SpatialNormFn" not in type(got.grad_fn).__name__
+    want = tfn.spatial_norm_reference(*leaves, act_swish=True)
+    assert torch.equal(got, want)
+    g = nchw(a["g"])
+    for x, y in zip(torch.autograd.grad(got, leaves, g),
+                    torch.autograd.grad(want, leaves, g)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["c_above_2048", "z3", "strided"])
+def test_default_keeps_the_reference_where_the_kernels_refuse(
+        cpu_kernels, case, monkeypatch):
+    """A shape the kernels do not take (C above their 2048, a zq of 3
+    channels, an f that is not contiguous) runs spatial_norm_reference
+    with no gradient too, launches nothing and counts one reference
+    call."""
+    _no_switch(monkeypatch)
+    c, z = (2080, 4) if case == "c_above_2048" else (64, 4 - (case == "z3"))
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    f, zq_r = t(1, c, 4, 6), t(1, z, 4, 6)
+    if case == "strided":
+        f = f.transpose(2, 3).contiguous().transpose(2, 3)
+    params = (t(c), t(c), t(c, z), t(c), t(c, z), t(c))
+    plain = tfn.PLAIN_CALLS["spatial_norm"]
+    with torch.no_grad():
+        got = tfn.spatial_norm(f, zq_r, *params, act_swish=True)
+    assert cpu_kernels == {"gn_moments": 0, "spatial_norm_apply": 0}
+    assert tfn.PLAIN_CALLS["spatial_norm"] == plain + 1
+    assert torch.equal(got, tfn.spatial_norm_reference(f, zq_r, *params,
+                                                       act_swish=True))
+
+
+def _decoders(seed=2):
+    """A small JAX decoder, its inputs (z, zq, masks) and initialised
+    variables, and the port's decoder with the same weights."""
+    kw = dict(ch=64, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+              resolution=16)
+    dec = JDecoder(**kw)
+    rng = np.random.default_rng(seed)
+    z = jnp.asarray(rng.normal(size=(1, 8, 8, 4)), jnp.float32)
+    zq = jnp.asarray(rng.normal(size=(1, 8, 8, 4)), jnp.float32)
+    m_c = (rng.uniform(size=(1, 2, 2)) < 0.3).astype(np.int32)
+    m_m = (rng.uniform(size=(1, 4, 4)) < 0.4).astype(np.int32)
+    m_m = m_m * (1 - m_c.repeat(2, 1).repeat(2, 2))
+    m_f = 1 - m_m.repeat(2, 1).repeat(2, 2) - m_c.repeat(4, 1).repeat(4, 2)
+    masks = (m_c, m_m, m_f)
+    params = dec.init(jax.random.PRNGKey(4), z, zq, masks)
+    port = Decoder(**kw)
+    sd = state_dict_from_flax({"decoder": jax.tree_util.tree_map(
+        np.asarray, params["params"])})
+    port.load_state_dict({k[len("decoder."):]: v for k, v in sd.items()},
+                         strict=True)
+    return dec, params, (z, zq, masks), port.eval()
+
+
+def _port_decode(port, z, zq, masks):
+    with torch.no_grad():
+        return port(nchw(z), nchw(zq),
+                    tuple(torch.from_numpy(m) for m in masks))
+
+
+# 3 mids x (2 blocks x 2 norms + 1 attention norm), level 1 (8x8, with
+# attention) 2 blocks x 2 + 2 attention norms, level 0 2 blocks x 2,
+# norm_out
+DECODER_NORMS = 15 + 6 + 4 + 1
+
+
 def test_decoder_fused_norm_matches_jax(monkeypatch):
     """A small decoder under CONTROL_GIC_FUSED_NORM=1: every SpatialNorm
     outside a fused conv (ResnetBlock norms, attention norms, norm_out) goes
@@ -275,31 +389,30 @@ def test_decoder_fused_norm_matches_jax(monkeypatch):
 
     monkeypatch.setattr(jblocks, "spatial_norm", jax_spatial_norm)
     monkeypatch.setattr(tfn, "_fused_forward", port_fused)
-    kw = dict(ch=64, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
-              resolution=16)
-    dec = JDecoder(**kw)
-    rng = np.random.default_rng(2)
-    z = jnp.asarray(rng.normal(size=(1, 8, 8, 4)), jnp.float32)
-    zq = jnp.asarray(rng.normal(size=(1, 8, 8, 4)), jnp.float32)
-    m_c = (rng.uniform(size=(1, 2, 2)) < 0.3).astype(np.int32)
-    m_m = (rng.uniform(size=(1, 4, 4)) < 0.4).astype(np.int32)
-    m_m = m_m * (1 - m_c.repeat(2, 1).repeat(2, 2))
-    m_f = 1 - m_m.repeat(2, 1).repeat(2, 2) - m_c.repeat(4, 1).repeat(4, 2)
-    masks = (m_c, m_m, m_f)
-    params = dec.init(jax.random.PRNGKey(4), z, zq, masks)
+    dec, params, (z, zq, masks), port = _decoders()
     n["jax"] = 0                                     # init ran it too
     want = dec.apply(params, z, zq, masks)
-    port = Decoder(**kw)
-    sd = state_dict_from_flax({"decoder": jax.tree_util.tree_map(
-        np.asarray, params["params"])})
-    port.load_state_dict({k[len("decoder."):]: v for k, v in sd.items()},
-                         strict=True)
-    with torch.no_grad():
-        got = port.eval()(nchw(z), nchw(zq),
-                          tuple(torch.from_numpy(m) for m in masks))
+    got = _port_decode(port, z, zq, masks)
     np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=5e-4,
                                rtol=2e-4)
-    # 3 mids x (2 blocks x 2 norms + 1 attention norm), level 1 (8x8, with
-    # attention) 2 blocks x 2 + 2 attention norms, level 0 2 blocks x 2,
-    # norm_out
-    assert n["port"] == n["jax"] == 15 + 6 + 4 + 1
+    assert n["port"] == n["jax"] == DECODER_NORMS
+
+
+def test_decoder_default_takes_the_kernels_without_grad(cpu_kernels,
+                                                        monkeypatch):
+    """The same decoder with no switch set under torch.no_grad(), the
+    dispatch's kernel path taken as on the card: every SpatialNorm outside
+    a chain runs the moment pass and the apply, as many as under the switch
+    above, none the reference formula; the output within that test's
+    tolerance of JAX's default decoder (its reference formula)."""
+    for name in ("CONTROL_GIC_FUSED_NORM", "CONTROL_GIC_STATS_KERNEL"):
+        monkeypatch.delenv(name, raising=False)
+    dec, params, (z, zq, masks), port = _decoders()
+    want = dec.apply(params, z, zq, masks)
+    plain = dict(tfn.PLAIN_CALLS)
+    got = _port_decode(port, z, zq, masks)
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=5e-4,
+                               rtol=2e-4)
+    assert cpu_kernels == {"gn_moments": DECODER_NORMS,
+                           "spatial_norm_apply": DECODER_NORMS}
+    assert tfn.PLAIN_CALLS == plain

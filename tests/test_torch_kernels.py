@@ -646,6 +646,43 @@ def test_stats_kernel_switch_launches_only_the_moments(cuda, monkeypatch):
     assert _rel_err(got, want) <= OUT_TOL[torch.bfloat16]
 
 
+def test_spatial_norm_takes_the_kernels_by_default_without_grad(
+        cuda, monkeypatch):
+    """A bf16 SpatialNorm of the decoder's kind (C=512, zq at half the
+    resolution) with no switch set: under torch.no_grad() one moment pass
+    and one apply launch, no reference call, within OUT_TOL of the plain
+    formula; under grad (its parameters need one) the reference formula,
+    counted in PLAIN_CALLS."""
+    from control_gic_tpu_torch.models.blocks import SpatialNorm
+
+    for name in ("CONTROL_GIC_FUSED_NORM", "CONTROL_GIC_STATS_KERNEL"):
+        monkeypatch.delenv(name, raising=False)
+    g = torch.Generator(device=cuda).manual_seed(41)
+    norm = SpatialNorm(512, 4, torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        for p in norm.parameters():
+            p.copy_(1.0 + 0.1 * torch.randn(p.shape, device=cuda,
+                                            generator=g))
+    f = torch.randn(2, 512, 32, 48, device=cuda, generator=g).to(
+        torch.bfloat16)
+    zq = torch.randn(2, 4, 16, 24, device=cuda, generator=g)
+    before, plain = dict(FN.KERNEL_LAUNCHES), dict(FN.PLAIN_CALLS)
+    with torch.no_grad():
+        got = norm(f, zq, act="swish")
+    torch.cuda.synchronize()
+    assert FN.KERNEL_LAUNCHES == {k: n + 1 for k, n in before.items()}
+    assert FN.PLAIN_CALLS == plain
+    with torch.no_grad(), plain_versions():
+        want = norm(f, zq, act="swish")
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) <= OUT_TOL[torch.bfloat16]
+    out = norm(f, zq, act="swish")
+    assert out.requires_grad
+    assert FN.KERNEL_LAUNCHES == {k: n + 1 for k, n in before.items()}
+    assert FN.PLAIN_CALLS == {"spatial_norm": plain["spatial_norm"] + 1}
+    assert torch.equal(out.detach(), want)
+
+
 def test_spatial_norm_apply_refuses_what_it_does_not_take(cuda):
     a = _chain_inputs(cuda, 1, 64, 8, 8, 16, torch.float32, 2)
     mom = FN.gn_moments(a["x"])

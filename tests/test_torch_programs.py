@@ -277,6 +277,41 @@ def test_launch_accounting(setup, backend):
         assert programs.captured == 1 and programs.capture_s > 0
 
 
+def test_replays_add_the_reference_calls(setup, monkeypatch):
+    """A program whose SpatialNorm runs the reference formula where the
+    kernels would run on the card (use_kernel as on the card, a C above the
+    kernels' 2048) counts it in fused_norm.PLAIN_CALLS once for the warm-up
+    and the capture, and each replay adds it again, as replays add the
+    kernels' KERNEL_LAUNCHES."""
+    from control_gic_tpu_torch.models.blocks import SpatialNorm
+    from control_gic_tpu_torch.ops import fused_norm
+
+    monkeypatch.setattr(fused_norm, "use_kernel", lambda t: True)
+    norm = SpatialNorm(2080, 4).requires_grad_(False)
+    with torch.no_grad():
+        for p in norm.parameters():
+            p.normal_(generator=torch.Generator().manual_seed(16))
+
+    def fn(f, zq):
+        build.count_launch(attention.KERNEL_LAUNCHES, "flash_fwd")
+        return norm(f, zq, act="swish")
+
+    programs = Programs(setup[1], Recorder())
+    cache = programs.cache()
+    g = torch.Generator().manual_seed(17)
+    f, zq = torch.randn(1, 2080, 4, 4, generator=g), torch.randn(1, 4, 2, 2,
+                                                                 generator=g)
+    counts = lambda: (fused_norm.PLAIN_CALLS["spatial_norm"],
+                      attention.KERNEL_LAUNCHES["flash_fwd"])
+    wants = [norm(f + n, zq, act="swish") for n in range(1, 4)]
+    c0 = counts()
+    for n, want in enumerate(wants, 1):
+        out = programs.run(cache, ("sn",), fn, f + n, zq)
+        assert torch.equal(out, want)
+        assert counts() == (c0[0] + n, c0[1] + n)
+    assert (programs.backend.captures, programs.backend.replays) == (1, 2)
+
+
 def test_threads_capture_once_and_count_exactly(setup):
     """Eight threads call one program at once: one capture, and every call
     counted once."""
