@@ -44,7 +44,7 @@ MAX_LUT_BITS = 20
 
 # Launches of the scan kernel in this process (one per call on a CUDA
 # tensor); a caller resets it to 0 and reads it back.
-KERNEL_LAUNCHES = {"huffman_scan": 0}
+KERNEL_LAUNCHES = build.counter({"huffman_scan": 0})
 
 _MASK32 = 0xFFFFFFFF
 

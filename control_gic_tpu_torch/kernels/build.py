@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
@@ -58,6 +58,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
 # name -> (seconds, ptxas report) of the builds this process ran
 BUILD_LOG: Dict[str, tuple] = {}
+# the counters of this process that count at call time (`counter`): a
+# replayed CUDA graph calls no wrapper, so its program adds to each what its
+# capture counted (utils/programs.Program)
+COUNTERS: List[dict] = []
 
 
 def find_nvcc() -> str:
@@ -119,6 +123,12 @@ def function(name: str, fn: str) -> ctypes._CFuncPtr:
     if f is None:
         f = _FUNCTIONS[name, fn] = getattr(load(name), fn)
     return f
+
+
+def counter(counts: dict) -> dict:
+    """Add `counts` to COUNTERS and return it."""
+    COUNTERS.append(counts)
+    return counts
 
 
 def count_launch(counts: dict, key: str) -> None:

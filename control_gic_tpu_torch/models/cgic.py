@@ -21,6 +21,7 @@ from ..ops.quantize import codebook_gather, vq_quantize
 from ..ops.resample import upsample_nearest
 from ..ops.router import (RouterOutput, grain_indices_from_masks,
                           triple_grain_router)
+from ..utils.trace import span
 from .blocks import Conv2d, GroupNorm32, lecun_normal_
 from .decoder import Decoder
 from .encoder import Encoder
@@ -136,9 +137,9 @@ class CGIC(nn.Module):
             return triple_grain_router(e16, e8, coarse_ratio, medium_ratio,
                                        per_sample=per_sample)
         from ..parallel.multihost import all_gather   # parallel/ imports us
-        out = triple_grain_router(all_gather(e16, group),
-                                  all_gather(e8, group), coarse_ratio,
-                                  medium_ratio)
+        with span("cgic.dp.gather"):
+            e16, e8 = all_gather(e16, group), all_gather(e8, group)
+        out = triple_grain_router(e16, e8, coarse_ratio, medium_ratio)
         b, r = x.shape[0], dist.get_rank(group)
         return RouterOutput(*(m[r * b:(r + 1) * b] for m in out.masks),
                             out.mode)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.trace import span
 from .blocks import lecun_normal_
 
 
@@ -56,9 +57,10 @@ class BatchNorm(nn.Module):
             # imports the models
             from ..parallel.multihost import all_reduce_sum
             c = x.shape[1]
-            sums = all_reduce_sum(torch.cat([
-                x.sum(dim=(0, 2, 3)), torch.square(x).sum(dim=(0, 2, 3)),
-                x.new_full((1,), x.numel() // c)]), group)
+            with span("cgic.dp.bn"):
+                sums = all_reduce_sum(torch.cat([
+                    x.sum(dim=(0, 2, 3)), torch.square(x).sum(dim=(0, 2, 3)),
+                    x.new_full((1,), x.numel() // c)]), group)
             mean = sums[:c] / sums[2 * c]
             var = torch.clamp(sums[c:2 * c] / sums[2 * c]
                               - torch.square(mean), min=0.0)

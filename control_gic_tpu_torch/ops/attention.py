@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..kernels import build
 from . import use_kernel
 
 # The JAX package's engagement rule, tuned on a TPU and kept as it is so that
@@ -49,8 +50,8 @@ _BLOCK_K = 512
 # pre-pass) and the dq backward. A wrapper adds one where it launches its
 # kernel; a caller resets them to 0 and reads them back to see that a run
 # went through the kernels.
-KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dkdv": 0,
-                   "flash_bwd_dq": 0}
+KERNEL_LAUNCHES = build.counter({"flash_fwd": 0, "flash_fwd_lse": 0,
+                                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (device, B, Tq, Tk, C, dtype code) -> the forward's key splits on that card
@@ -281,7 +282,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("flash_attention", q, k, v)
     b, tq, c = q.shape
     tk, code = k.shape[1], _DTYPE_CODE[q.dtype]
-    from ..kernels import build
     lib = build.load("flash_attn_fwd")
     out = torch.empty_like(q)
     lse = (torch.empty(b, tq, dtype=torch.float32, device=q.device)
@@ -331,7 +331,6 @@ def flash_attention_backward_dkdv(q, k, v, o, lse, do):
     (dk, dv, delta), delta = rowsum(do∘o) [B, Tq] f32 for the dq kernel."""
     _check("flash_attention_backward_dkdv", q, k, v, o, do)
     _check_lse(q, lse, "lse")
-    from ..kernels import build
     lib = build.load("flash_attn_bwd")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
@@ -349,7 +348,6 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta):
     _check("flash_attention_backward_dq", q, k, v, do)
     _check_lse(q, lse, "lse")
     _check_lse(q, delta, "delta")
-    from ..kernels import build
     lib = build.load("flash_attn_bwd")
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):

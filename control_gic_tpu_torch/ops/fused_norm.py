@@ -52,12 +52,12 @@ EPS = 1e-6
 # Launches of the CUDA kernels in this process: the moment pass and the
 # SpatialNorm apply (each wrapper adds one per launch). A caller resets them
 # to 0 and reads them back.
-KERNEL_LAUNCHES = {"gn_moments": 0, "spatial_norm_apply": 0}
+KERNEL_LAUNCHES = build.counter({"gn_moments": 0, "spatial_norm_apply": 0})
 # Calls of `spatial_norm` that ran spatial_norm_reference where
 # `use_kernel` holds (a CUDA tensor outside plain_versions()): under grad,
 # with use_fused=False, or a shape the kernels do not take. Counted as the
 # launches are.
-PLAIN_CALLS = {"spatial_norm": 0}
+PLAIN_CALLS = build.counter({"spatial_norm": 0})
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 

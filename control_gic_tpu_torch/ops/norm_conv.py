@@ -62,8 +62,8 @@ CHAIN_MIN_ELEMS = 9_000_000
 
 # Launches of the CUDA kernel in this process, by use and norm form: the
 # chain, and the per-call op. A caller resets them to 0 and reads them back.
-KERNEL_LAUNCHES = {"chain_gn": 0, "chain_sn": 0, "norm_conv_gn": 0,
-                   "norm_conv_sn": 0}
+KERNEL_LAUNCHES = build.counter({"chain_gn": 0, "chain_sn": 0,
+                                 "norm_conv_gn": 0, "norm_conv_sn": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 Stats = Tuple[torch.Tensor, torch.Tensor]

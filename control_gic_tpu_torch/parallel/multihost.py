@@ -19,6 +19,15 @@ one-card machine) take gloo with CUDA tensors, because NCCL refuses two
 ranks on one device; gloo takes CUDA tensors for all_reduce and all_gather
 (checked on the H100's torch 2.11 build), so the helpers hand them over as
 they are.
+
+Counters: `COLLECTIVE_CALLS` and `COLLECTIVE_BYTES`, keyed by op
+(`all_reduce`, `all_gather`), count each collective that runs over a
+group (with group=None nothing runs and nothing is counted) and the bytes
+of its result on this rank: the whole tensor of an all-reduce (the
+differentiable sum's forward and backward each count one), the gathered
+tensor of an all-gather. They are registered with the kernels' launch
+counters (`kernels.build.counter`) and taken under their lock, so that a
+replayed CUDA graph adds its capture's counts (utils/programs.py).
 """
 from __future__ import annotations
 
@@ -27,6 +36,16 @@ from typing import List, Optional
 
 import torch
 import torch.distributed as dist
+
+from ..kernels import build
+
+COLLECTIVE_CALLS = build.counter({"all_reduce": 0, "all_gather": 0})
+COLLECTIVE_BYTES = build.counter({"all_reduce": 0, "all_gather": 0})
+
+
+def _count(op: str, t: torch.Tensor) -> None:
+    build.add_launches(COLLECTIVE_CALLS, {op: 1})
+    build.add_launches(COLLECTIVE_BYTES, {op: t.numel() * t.element_size()})
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -140,6 +159,7 @@ def all_reduce_(t: torch.Tensor, group: Optional[dist.ProcessGroup],
     if group is None:
         return t
     dist.all_reduce(t, group=group)
+    _count("all_reduce", t)
     if op == "mean":
         t.div_(dist.get_world_size(group))
     return t
@@ -168,13 +188,16 @@ def all_gather(t: torch.Tensor, group: Optional[dist.ProcessGroup]
         return t
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts)
+    out = torch.cat(parts)
+    _count("all_gather", out)
+    return out
 
 
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group whose gradient is the sum over the group of the
     gradients: each rank's loss reads every rank's input, so each input's
-    gradient collects every rank's share."""
+    gradient collects every rank's share. Each direction is one counted
+    all_reduce_."""
 
     @staticmethod
     def forward(ctx, x, group):

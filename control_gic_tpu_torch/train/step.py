@@ -44,6 +44,11 @@ their norms, the gradients are averaged before the clip, the codebook
 counters add every rank's counts, and the metrics are averaged (val/psnr
 from the averaged error). NCCL's collectives are captured in the step's
 CUDA graph; gloo's cannot be, so a gloo group runs the steps eagerly.
+Spans (profiler ranges of a traced step, run where the step runs eagerly
+or is captured): `cgic.dp.grads` over each gradient mean, `cgic.dp.metrics`
+over the metrics' mean, `cgic.dp.gather` over the router's all-gathers
+(models/cgic.py) and `cgic.dp.bn` over the discriminator's group sums
+(models/discriminator.py).
 """
 from __future__ import annotations
 
@@ -96,9 +101,10 @@ def _mean_metrics(metrics: Metrics, group) -> Metrics:
     """Each metric averaged over the group (one all-reduce)."""
     if group is None:
         return metrics
-    vals = all_reduce_mean([torch.stack([v.float() for v in
-                                         metrics.values()])], group)[0]
-    return dict(zip(metrics, vals.unbind()))
+    with span("cgic.dp.metrics"):
+        vals = all_reduce_mean([torch.stack([v.float() for v in
+                                             metrics.values()])], group)[0]
+        return dict(zip(metrics, vals.unbind()))
 
 
 # The programs' functions take the config and the state, not the Trainer:
@@ -111,8 +117,9 @@ def _global_grads(params, grads, group):
     gets zeros, as jax.grad gives."""
     if group is None:
         return grads
-    return all_reduce_mean([torch.zeros_like(p) if g is None else g
-                            for p, g in zip(params, grads)], group)
+    with span("cgic.dp.grads"):
+        return all_reduce_mean([torch.zeros_like(p) if g is None else g
+                                for p, g in zip(params, grads)], group)
 
 
 def _step(cfg: TrainConfig, state: TrainState, on: float, x: torch.Tensor,

@@ -23,8 +23,10 @@ on the CPU) every call runs eagerly, as under `jax.disable_jit()`.
 
 Launch counts: the kernel wrappers count at each call
 (`kernels.build.count_launch`; so does `fused_norm.spatial_norm` where it
-runs its reference on a CUDA tensor), and a replay calls no wrapper. So a
-program records the counter delta of its capture, takes it back (the
+runs its reference on a CUDA tensor, and so do the process group's
+collectives, `parallel.multihost.COLLECTIVE_CALLS` and `COLLECTIVE_BYTES`),
+and a replay calls no wrapper. So a program records the delta of every
+registered counter (`build.COUNTERS`) over its capture, takes it back (the
 warm-up and the capture together are one call) and adds it at each replay
 (`build.add_launches`): the counts with graphs equal the counts without.
 
@@ -74,7 +76,6 @@ from typing import Callable, List, Optional
 import torch
 
 from .. import ops
-from ..coding import huffman_decode_device
 from ..kernels import build
 from ..ops import attention, fused_norm, norm_conv
 from .trace import span
@@ -86,10 +87,6 @@ SWITCHES = ("CONTROL_GIC_FUSED_NORM", "CONTROL_GIC_STATS_KERNEL",
             "CONTROL_GIC_CHAIN", "CONTROL_GIC_NORM_CONV",
             "CONTROL_GIC_NORM_CONV_MIN_ELEMS", "CONTROL_GIC_SUBPIXEL",
             "CONTROL_GIC_FLASH_BWD")
-
-_COUNTERS = (attention.KERNEL_LAUNCHES, norm_conv.KERNEL_LAUNCHES,
-             fused_norm.KERNEL_LAUNCHES, fused_norm.PLAIN_CALLS,
-             huffman_decode_device.KERNEL_LAUNCHES)
 
 
 def call_state() -> tuple:
@@ -106,11 +103,11 @@ def call_state() -> tuple:
 
 
 def _launches() -> List[dict]:
-    return [dict(c) for c in _COUNTERS]
+    return [dict(c) for c in build.COUNTERS]
 
 
 def _add_launches(delta: List[dict], sign: int = 1) -> None:
-    for counts, d in zip(_COUNTERS, delta):
+    for counts, d in zip(build.COUNTERS, delta):
         if d:
             build.add_launches(counts, {k: sign * v for k, v in d.items()})
 

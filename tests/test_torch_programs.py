@@ -312,6 +312,20 @@ def test_replays_add_the_reference_calls(setup, monkeypatch):
     assert (programs.backend.captures, programs.backend.replays) == (1, 2)
 
 
+def test_every_counter_is_registered_once():
+    """Each counter that counts at call time is in build.COUNTERS once, so
+    that a replay adds its capture's counts to it once."""
+    from control_gic_tpu_torch.coding import huffman_decode_device
+    from control_gic_tpu_torch.ops import fused_norm
+    from control_gic_tpu_torch.parallel import multihost
+    ids = [id(c) for c in build.COUNTERS]
+    for c in (attention.KERNEL_LAUNCHES, norm_conv.KERNEL_LAUNCHES,
+              fused_norm.KERNEL_LAUNCHES, fused_norm.PLAIN_CALLS,
+              huffman_decode_device.KERNEL_LAUNCHES,
+              multihost.COLLECTIVE_CALLS, multihost.COLLECTIVE_BYTES):
+        assert ids.count(id(c)) == 1, c
+
+
 def test_threads_capture_once_and_count_exactly(setup):
     """Eight threads call one program at once: one capture, and every call
     counted once."""
