@@ -193,14 +193,21 @@ KERNELS = {
 # shapes the main paths give the attention kernel: (B, Tq, Tk, C, dtype);
 # 4096 tokens at 256x256, 24576 and 6144 at 512x768, 36864 on a 768-px tile;
 # then the H-sharded codec's local queries against gathered keys (Tq =
-# Tk / 2: the 2-shard Kodak latent)
+# Tk / 2: the 2-shard Kodak latent); then the tiled codec's 496-px edge
+# tiles, which no 256-token block divides but 23808 (the 768x496 latent):
+# 17856 and 4464 on the 576x496 tile (latent, H/8), 5952 at H/8 of 768x496
 ATTN_SHAPES = [(1, 4096, 4096, 512, "bfloat16"), (1, 4096, 4096, 256, "bfloat16"),
                (2, 4096, 4096, 512, "float32"), (1, 1024, 4096, 512, "bfloat16"),
                (1, 24576, 24576, 512, "bfloat16"), (1, 24576, 24576, 256, "bfloat16"),
                (1, 6144, 6144, 512, "bfloat16"), (1, 36864, 36864, 512, "bfloat16"),
                (1, 36864, 36864, 256, "bfloat16"),
                (1, 12288, 24576, 512, "bfloat16"),
-               (1, 12288, 24576, 256, "bfloat16")]
+               (1, 12288, 24576, 256, "bfloat16"),
+               (1, 17856, 17856, 512, "bfloat16"),
+               (1, 17856, 17856, 256, "bfloat16"),
+               (1, 4464, 4464, 512, "bfloat16"),
+               (1, 5952, 5952, 512, "bfloat16"),
+               (1, 23808, 23808, 512, "bfloat16")]
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the H-sharded codec's flash calls on the 1536x2048 image of phase 15(b),
 # whose latent levels are /4 (196608 tokens: C 512 in the decoder's mids,
@@ -484,14 +491,31 @@ def attn_bound_ms(b, tq, tk, c, dtype, peaks) -> tuple:
 
 def phase_kernels(dev: dict) -> list:
     import torch
-    import torch.nn.functional as F
 
-    from control_gic_tpu_torch.ops import attention as A
     from control_gic_tpu_torch.utils.device import use_fp32_pipes
 
     use_fp32_pipes()
     peaks = card_peaks(dev["name"])
     gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = attn_rows(dev, peaks, gen)
+    rows += spatial_attn_rows(dev, peaks, gen)
+    rows += train_attn_rows(dev, peaks, gen)
+    rows += chain_rows(dev, peaks, gen)
+    rows += moment_rows(dev, peaks, gen)
+    rows += apply_rows(dev, peaks, gen)
+    rows += norm_conv_rows(dev, peaks, gen)
+    chain_grad_checks(gen)
+    switched_grad_checks(gen)
+    return rows
+
+
+def attn_rows(dev: dict, peaks, gen) -> list:
+    """The flash forward at ATTN_SHAPES against its plain version, timed
+    beside it and the library's SDPA; fails on a disagreement."""
+    import torch
+    import torch.nn.functional as F
+
+    from control_gic_tpu_torch.ops import attention as A
     rows = []
     for b, tq, tk, c, dt in ATTN_SHAPES:
         dtype = getattr(torch, dt)
@@ -523,14 +547,6 @@ def phase_kernels(dev: dict) -> list:
                                  f"max abs err {err} > {ATTN_TOL[dt]}")
         rows.append(row)
         del q, k, v, out, ref
-    rows += spatial_attn_rows(dev, peaks, gen)
-    rows += train_attn_rows(dev, peaks, gen)
-    rows += chain_rows(dev, peaks, gen)
-    rows += moment_rows(dev, peaks, gen)
-    rows += apply_rows(dev, peaks, gen)
-    rows += norm_conv_rows(dev, peaks, gen)
-    chain_grad_checks(gen)
-    switched_grad_checks(gen)
     return rows
 
 
@@ -1530,10 +1546,9 @@ TILED_SETTINGS = {
 # one encode and one decode), by setting and tile shape, from the gates on
 # the full-width model's shapes:
 #  - flash: the encoder's fine-head mid, the decoder's 3 mids and, where
-#    H/8 x W/8 tokens are >= 4096 and JAX's blocks divide them, the
-#    encoder's 2 level-3 attentions and medium-head mid and the decoder's 3
-#    level-3 attentions; the 576x496 tile's fine head (17856 tokens) no
-#    256-block divides;
+#    H/8 x W/8 tokens are >= 4096, the encoder's 2 level-3 attentions and
+#    medium-head mid and the decoder's 3 level-3 attentions, at any length
+#    (the 496-px tiles' 17856, 4464 and 5952 tokens no 256-block divides);
 #  - default: the chain where a trunk run of blocks reaches 9M elements per
 #    sample with W a multiple of 16 (the encoder's levels 0-2 at 768x768,
 #    levels 0-1 at 576x768, level 0 at 496 px wide; the decoder's levels
@@ -1552,24 +1567,25 @@ PER_TILE = {
     "default": {
         (768, 768): launches_of(flash_attn_fwd=10, chain_gn=12, chain_sn=19,
                                 gn_moments=36, spatial_norm_apply=30),
-        (768, 496): launches_of(flash_attn_fwd=4, chain_gn=4, chain_sn=7,
+        (768, 496): launches_of(flash_attn_fwd=10, chain_gn=4, chain_sn=7,
                                 gn_moments=44, spatial_norm_apply=42),
         (576, 768): launches_of(flash_attn_fwd=10, chain_gn=8, chain_sn=13,
                                 gn_moments=40, spatial_norm_apply=36),
-        (576, 496): launches_of(chain_gn=4, chain_sn=7, gn_moments=44,
-                                spatial_norm_apply=42)},
+        (576, 496): launches_of(flash_attn_fwd=10, chain_gn=4, chain_sn=7,
+                                gn_moments=44, spatial_norm_apply=42)},
     "chain0_norm_conv1": {
         (768, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=17,
                                 norm_conv_sn=31, gn_moments=66,
                                 spatial_norm_apply=18),
-        (768, 496): launches_of(flash_attn_fwd=4, norm_conv_gn=4,
+        (768, 496): launches_of(flash_attn_fwd=10, norm_conv_gn=4,
                                 norm_conv_sn=7, gn_moments=53,
                                 spatial_norm_apply=42),
         (576, 768): launches_of(flash_attn_fwd=10, norm_conv_gn=8,
                                 norm_conv_sn=25, gn_moments=57,
                                 spatial_norm_apply=24),
-        (576, 496): launches_of(norm_conv_gn=4, norm_conv_sn=7,
-                                gn_moments=53, spatial_norm_apply=42)},
+        (576, 496): launches_of(flash_attn_fwd=10, norm_conv_gn=4,
+                                norm_conv_sn=7, gn_moments=53,
+                                spatial_norm_apply=42)},
 }
 PER_TILE["fused_norm1"] = PER_TILE["default"]
 ALL_SWITCHES = {"CONTROL_GIC_CHAIN": "0", "CONTROL_GIC_NORM_CONV": "1",

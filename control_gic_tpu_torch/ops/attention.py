@@ -21,9 +21,13 @@ The backward (FlashAttention-2, JAX `_flash_backward`):
 `FlashAttentionFn` (JAX `_flash_diff`) puts the lse forward and the two
 backward kernels in one autograd.Function.
 
-`attention` dispatches the way the JAX package does: the kernels from
-FLASH_MIN_TOKENS keys on, where JAX's blocks divide both lengths, the plain
-path otherwise. Under grad it takes FlashAttentionFn, or with
+`attention` takes the kernels from FLASH_MIN_TOKENS keys on. Where no
+gradient is recorded the forward kernel runs at any Tq and Tk, since it
+masks the key columns past Tk and stores only the query rows below Tq (a
+rule re-derived on the H100: at lengths that JAX's blocks do not divide the
+plain path is two f32 GEMMs over a materialised Tq×Tk matrix). Under grad
+the dispatch keeps the JAX package's rule, the kernels only where JAX's
+blocks divide both lengths, and takes FlashAttentionFn, or with
 CONTROL_GIC_FLASH_BWD=xla the forward kernel and a backward through autograd
 of `attention_reference` (JAX's einsum-recompute switch). Nothing selects
 that switch on a failure.
@@ -39,8 +43,11 @@ import torch
 from ..kernels import build
 from . import use_kernel
 
-# The JAX package's engagement rule, tuned on a TPU and kept as it is so that
-# the port engages where JAX does; it has not been re-derived on the H100.
+# The kernels engage from this many keys, the JAX package's threshold. Without
+# a gradient the forward kernel then takes any length (re-derived on the
+# H100); under grad the kernels also need JAX's blocks of _BLOCK_Q query rows
+# and _BLOCK_K keys, or halves of them down to 256, to divide the lengths
+# (the JAX package's rule, tuned on a TPU and kept as it is).
 FLASH_MIN_TOKENS = 4096
 _BLOCK_Q = 1024
 _BLOCK_K = 512
@@ -52,6 +59,11 @@ _BLOCK_K = 512
 # went through the kernels.
 KERNEL_LAUNCHES = build.counter({"flash_fwd": 0, "flash_fwd_lse": 0,
                                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0})
+# Calls of `attention` that ran attention_reference where `use_kernel` holds
+# (a CUDA tensor outside plain_versions()) with at least FLASH_MIN_TOKENS
+# keys, which under grad are the lengths JAX's blocks do not divide.
+# Counted as the launches are.
+PLAIN_CALLS = build.counter({"attention": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (device, B, Tq, Tk, C, dtype code) -> the forward's key splits on that card
@@ -424,22 +436,26 @@ def _pick_block(t: int, preferred: int) -> int:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               use_flash: Optional[bool] = None) -> torch.Tensor:
-    """Flash kernels for CUDA tensors with at least FLASH_MIN_TOKENS keys and
-    lengths that JAX's blocks divide (`_pick_block(Tq, 1024)` and
-    `_pick_block(Tk, 512)` both non-zero, its engagement rule); the plain
-    path otherwise and inside ops.plain_versions(). use_flash=True forces
-    the kernels (and raises on CPU tensors); use_flash=False forces the plain
-    path. Where a gradient is needed the kernels run as FlashAttentionFn
-    (the lse forward, then the two backward kernels); elsewhere the forward
-    kernel runs alone."""
+    """Flash kernels for CUDA tensors with at least FLASH_MIN_TOKENS keys:
+    the forward kernel alone at any lengths where no gradient is recorded;
+    under grad FlashAttentionFn (the lse forward, then the two backward
+    kernels) where JAX's blocks divide both lengths (`_pick_block(Tq, 1024)`
+    and `_pick_block(Tk, 512)` both non-zero, its engagement rule). The
+    plain path otherwise and inside ops.plain_versions(). use_flash=True
+    forces the kernels (and raises on CPU tensors); use_flash=False forces
+    the plain path."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if use_flash is None:
-        use_flash = (use_kernel(q) and k.shape[1] >= FLASH_MIN_TOKENS
-                     and _pick_block(q.shape[1], _BLOCK_Q) > 0
-                     and _pick_block(k.shape[1], _BLOCK_K) > 0)
+        on_card = use_kernel(q) and k.shape[1] >= FLASH_MIN_TOKENS
+        use_flash = on_card and (not grad or (
+            _pick_block(q.shape[1], _BLOCK_Q) > 0
+            and _pick_block(k.shape[1], _BLOCK_K) > 0))
+        if on_card and not use_flash:
+            build.count_launch(PLAIN_CALLS, "attention")
     if not use_flash:
         return attention_reference(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if grad:
         fn = _FlashRecomputeFn if _use_reference_bwd() else FlashAttentionFn
         return fn.apply(q, k, v)
     return flash_attention(q, k, v)

@@ -10,8 +10,8 @@ its device:
   - GroupNorm /     -> the shards' partial sums added (psum) for the global
     SpatialNorm        statistics (GroupNorm normalises over (H, W, C/g));
   - attention       -> queries stay local, keys and values all-gathered:
-                       Tq = T/n against Tk = T, which the flash kernel takes
-                       (ops/attention.py) where JAX's blocks divide both;
+                       Tq = T/n against Tk = T, which the flash forward
+                       kernel takes at any lengths (ops/attention.py);
   - resizes, pools  -> local: every factor is a power of two and the shards
     and mask gates     divide evenly, so each shard's rows map onto its own;
   - Upsample        -> the subpixel form with a 1-row halo

@@ -127,9 +127,72 @@ def test_blocked_replay_refuses_an_empty_split():
 
 def test_dispatch_on_cpu_takes_the_plain_path():
     q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 4096, 4096, 16))
-    before = dict(tat.KERNEL_LAUNCHES)
+    before, plain = dict(tat.KERNEL_LAUNCHES), dict(tat.PLAIN_CALLS)
     out = tat.attention(q, k, v)
-    assert tat.KERNEL_LAUNCHES == before
+    assert tat.KERNEL_LAUNCHES == before and tat.PLAIN_CALLS == plain
+    np.testing.assert_array_equal(out.numpy(),
+                                  tat.attention_reference(q, k, v).numpy())
+
+
+@pytest.fixture
+def cpu_kernels(monkeypatch):
+    """The dispatch as on a card, on CPU tensors: `use_kernel` true, the
+    forward kernel's wrapper replaced by its blocked replay (its launches
+    counted) and FLASH_MIN_TOKENS lowered to 512. Yields the launches."""
+    calls = {"fwd": 0}
+
+    def fwd(q, k, v, return_lse=False):
+        assert not return_lse and not torch.is_grad_enabled()
+        calls["fwd"] += 1
+        return tat.flash_attention_blocked_reference(q, k, v)
+
+    monkeypatch.setattr(tat, "use_kernel", lambda t: True)
+    monkeypatch.setattr(tat, "FLASH_MIN_TOKENS", 512)
+    monkeypatch.setattr(tat, "flash_attention", fwd)
+    return calls
+
+
+def _plain_calls():
+    return tat.PLAIN_CALLS["attention"]
+
+
+@pytest.mark.parametrize("tq, tk", [(528, 528), (100, 600), (4464, 4464)])
+def test_forward_takes_the_kernel_at_any_length(cpu_kernels, tq, tk):
+    """Without a gradient the forward kernel runs from FLASH_MIN_TOKENS keys
+    on whether or not JAX's blocks divide the lengths, and no plain call is
+    counted."""
+    assert tat._pick_block(tk, tat._BLOCK_K) == 0
+    q, k, v = (torch.from_numpy(a) for a in _qkv(tq + tk, 1, tq, tk, 32))
+    plain = _plain_calls()
+    with torch.no_grad():
+        out = tat.attention(q, k, v)
+    assert cpu_kernels == {"fwd": 1} and _plain_calls() == plain
+    np.testing.assert_allclose(out.numpy(),
+                               tat.attention_reference(q, k, v).numpy(),
+                               atol=TOL["float32"])
+
+
+def test_grad_keeps_the_jax_rule_and_counts_the_fallback(cpu_kernels):
+    """Under grad, lengths that JAX's blocks do not divide take the plain
+    path: counted from FLASH_MIN_TOKENS keys on, not below."""
+    ragged = tat.FLASH_MIN_TOKENS + 16
+    for tk, counted in ((ragged, 1), (tat.FLASH_MIN_TOKENS - 16, 0)):
+        q, k, v = (torch.from_numpy(a).requires_grad_()
+                   for a in _qkv(tk, 1, tk, tk, 16))
+        plain = _plain_calls()
+        out = tat.attention(q, k, v)
+        assert out.requires_grad and cpu_kernels == {"fwd": 0}
+        assert _plain_calls() == plain + counted
+        out.sum().backward()
+        assert q.grad is not None and k.grad is not None
+
+
+def test_below_the_key_threshold_stays_plain_and_uncounted(cpu_kernels):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 1024, 496, 16))
+    plain = _plain_calls()
+    with torch.no_grad():
+        out = tat.attention(q, k, v)
+    assert cpu_kernels == {"fwd": 0} and _plain_calls() == plain
     np.testing.assert_array_equal(out.numpy(),
                                   tat.attention_reference(q, k, v).numpy())
 

@@ -47,7 +47,11 @@ def _qkv(device, b, tq, tk, c, dtype, seed):
                                           (1, 4100, 4100, 512),
                                           (1, 4100, 4100, 256),
                                           (2, 1000, 4100, 256),
-                                          (1, 300, 4096, 384)])
+                                          (1, 300, 4096, 384),
+                                          # the tiled codec's edge tiles at
+                                          # H/8: no 256-token block divides
+                                          (1, 4464, 4464, 512),
+                                          (1, 5952, 5952, 512)])
 def test_flash_kernel_matches_plain(cuda, b, tq, tk, c, dtype, tol):
     q, k, v = _qkv(cuda, b, tq, tk, c, dtype, tq + tk + c)
     before = A.KERNEL_LAUNCHES["flash_fwd"]
@@ -105,13 +109,25 @@ def test_dispatch_engages_the_kernel_from_4096_keys(cuda):
     assert A.KERNEL_LAUNCHES["flash_fwd"] == before + 1
 
 
-def test_dispatch_stays_plain_where_jax_blocks_do_not_divide(cuda):
-    before = A.KERNEL_LAUNCHES["flash_fwd"]
-    out = A.attention(*_qkv(cuda, 1, 4112, 4112, 64, torch.bfloat16, 4))
-    assert A.KERNEL_LAUNCHES["flash_fwd"] == before
-    assert out.shape == (1, 4112, 64)
-    A.attention(*_qkv(cuda, 1, 6144, 6144, 64, torch.bfloat16, 5))
-    assert A.KERNEL_LAUNCHES["flash_fwd"] == before + 1
+def test_dispatch_engages_at_lengths_jax_blocks_do_not_divide(cuda):
+    """4112 tokens, which no 256-token block divides: without a gradient
+    the forward kernel runs; under grad the plain path, counted in
+    PLAIN_CALLS, and no kernel."""
+    q, k, v = _qkv(cuda, 1, 4112, 4112, 64, torch.bfloat16, 4)
+    before, plain = dict(A.KERNEL_LAUNCHES), dict(A.PLAIN_CALLS)
+    with torch.no_grad():
+        out = A.attention(q, k, v)
+    assert A.KERNEL_LAUNCHES == {**before, "flash_fwd": before["flash_fwd"]
+                                 + 1}
+    assert A.PLAIN_CALLS == plain
+    err = (out.float() - A.attention_reference(q, k, v).float()).abs().max()
+    assert err.item() <= OUT_TOL[torch.bfloat16]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    A.attention(*leaves).float().sum().backward()
+    assert A.KERNEL_LAUNCHES == {**before, "flash_fwd": before["flash_fwd"]
+                                 + 1}
+    assert A.PLAIN_CALLS == {"attention": plain["attention"] + 1}
+    assert all(t.grad is not None for t in leaves)
 
 
 # ------------------------------------------------------- attention gradient

@@ -319,7 +319,8 @@ def test_every_counter_is_registered_once():
     from control_gic_tpu_torch.ops import fused_norm
     from control_gic_tpu_torch.parallel import multihost
     ids = [id(c) for c in build.COUNTERS]
-    for c in (attention.KERNEL_LAUNCHES, norm_conv.KERNEL_LAUNCHES,
+    for c in (attention.KERNEL_LAUNCHES, attention.PLAIN_CALLS,
+              norm_conv.KERNEL_LAUNCHES,
               fused_norm.KERNEL_LAUNCHES, fused_norm.PLAIN_CALLS,
               huffman_decode_device.KERNEL_LAUNCHES,
               multihost.COLLECTIVE_CALLS, multihost.COLLECTIVE_BYTES):
