@@ -31,11 +31,13 @@ uint8 quantized as save_png does with out_uint8=True.
 
 Device work is asynchronous up to a fetch: images go up from pinned memory
 without waiting, results come down by a pinned copy enqueued behind the
-work, with an event after the work and one after the copy (`_Fetch`). All
-of it runs on the device's current stream, one queue as in JAX, from
-whichever thread. `encode_batch_async` / `encode_finish` and
-`decode_batch_async` split the two halves, and `roundtrip_pipelined` runs
-batch i's host entropy stage while the device encodes batch i+1.
+work, with an event after the work and one after the copy
+(`pipeline._Fetch`). All of it runs on the device's current stream, one
+queue as in JAX, from whichever thread. `encode_batch_async` /
+`encode_finish` and `decode_batch_async` split the two halves, and
+`roundtrip_pipelined` runs them as three stages a batch on the one runner
+of pipeline.py (`run_stages`), which the tiled codec shares: threaded,
+batch i's host entropy stage runs while the device encodes batch i+1.
 
 Timing is by spans (utils/trace.py): `compress` and `roundtrip_pipelined`
 open a request's root span, each stage, upload, device wait and program
@@ -46,8 +48,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import queue
-import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -67,6 +67,7 @@ from .coding.stream_pack import (fuse_packed, fused_layout, fused_to_bytes,
                                  pack_streams_batch)
 from .models.cgic import CGIC
 from .ops.router import mode_from_ratios
+from .pipeline import _Fetch, run_stages
 from .utils.device import resolve_device
 from .utils.programs import CUDAGraphs, Programs
 from .utils.trace import span
@@ -94,69 +95,6 @@ MODE_STREAMS = {
 class CorruptStreamError(ValueError):
     """A bitstream decoded to a symbol count its mask does not select, or to
     a symbol outside the codebook."""
-
-
-def _put(q: "queue.Queue", name: str, item, root: span,
-         batch: Optional[int] = None) -> None:
-    """q.put(item); a put that blocks on a full queue is a queue_wait span
-    of the pipeline `root`."""
-    try:
-        q.put_nowait(item)
-    except queue.Full:
-        with span("cgic.pipe.queue_wait", parent=root, batch=batch, queue=name,
-                  op="put"):
-            q.put(item)
-
-
-def _get(q: "queue.Queue", name: str, root: span):
-    """q.get(); a get that blocks on an empty queue is a queue_wait span of
-    the pipeline `root`, with the batch index of the item it took."""
-    try:
-        return q.get_nowait()
-    except queue.Empty:
-        with span("cgic.pipe.queue_wait", parent=root, queue=name,
-                  op="get") as sp:
-            item = q.get()
-            sp.batch = None if item is None else item[0]
-        return item
-
-
-class _Fetch:
-    """Device tensors on their way to the host: pinned copies enqueued on
-    the device's current stream behind the work that computes them, an
-    event after that work (`sync`) and one after the copies (`arrays`). On
-    the CPU, the tensors themselves. Both waits are device_wait spans, whose
-    seconds go to stats[key] where given."""
-
-    def __init__(self, *tensors: torch.Tensor):
-        dev = tensors[0].device
-        self.done = self.copied = None
-        if dev.type != "cuda":
-            self.host = tensors
-            return
-        stream = torch.cuda.current_stream(dev)
-        self.done = torch.cuda.Event()
-        self.done.record(stream)
-        self.host = tuple(
-            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                t, non_blocking=True) for t in tensors)
-        self.copied = torch.cuda.Event()
-        self.copied.record(stream)
-
-    def sync(self, stats: Optional[dict] = None,
-             key: Optional[str] = None) -> None:
-        """Wait for the work that computes the tensors."""
-        with span("cgic.codec.device_wait", stats, key, wait="sync"):
-            if self.done is not None:
-                self.done.synchronize()
-
-    def arrays(self, stats: Optional[dict] = None,
-               key: Optional[str] = None) -> List[np.ndarray]:
-        """Wait for the copies; the tensors as numpy arrays."""
-        with span("cgic.codec.device_wait", stats, key, wait="copy"):
-            if self.copied is not None:
-                self.copied.synchronize()
-            return [t.numpy() for t in self.host]
 
 
 @dataclasses.dataclass
@@ -483,14 +421,13 @@ class CGICCodec:
         lens = self._device_tables[0]
         return int(lens.max()) if lens.size else 1
 
-    def _pack_layout(self, mode: int, hl: int, wl: int):
-        return fused_layout(mode, hl, wl, self._max_code_len())
-
     def _frame_packed(self, buf: np.ndarray, mode: int,
                       image_hw: Tuple[int, int], n: int
                       ) -> List[EncodedImage]:
+        """The bundles of the first n rows of a fetched fused buffer of
+        image_hw images (encode_finish, and the tiled codec's stage b)."""
         h, w = image_hw
-        layout = self._pack_layout(mode, h // 4, w // 4)
+        layout = fused_layout(mode, h // 4, w // 4, self._max_code_len())
         return [EncodedImage(mode=mode, latent_hw=(h // 4, w // 4),
                              image_hw=(h, w),
                              streams=fused_to_bytes(buf, layout, i))
@@ -798,6 +735,20 @@ class CGICCodec:
         out[:flat.size] = flat
         return out, offs
 
+    def _receiver_input(self, encoded: List[EncodedImage],
+                        device_unpack: bool) -> Tuple[np.ndarray, ...]:
+        """What goes up for the receiver, in the dtypes the decode programs
+        take: for the device receiver the flat frame words (int32 bits) and
+        their offset table (_flat_stream_upload); for the host receiver the
+        rebuilt grids and the mask frames in one compact buffer (int16
+        bits, _compact_decode_input). decode_batch_async,
+        decode_batch_device_async and the tiled codec's stage b call it."""
+        if device_unpack:
+            flat, offs = self._flat_stream_upload(encoded)
+            return flat.view(np.int32), offs
+        inds = [self._rebuild(e)[0] for e in encoded]
+        return (self._compact_decode_input(encoded, inds).view(np.int16),)
+
     def _unpack_engaged(self, device_unpack: bool,
                         strict: bool = False) -> bool:
         """Whether the device receiver runs: asked for, and the table is
@@ -917,11 +868,9 @@ class CGICCodec:
         with span("cgic.coding.rebuild", stats, "b_rebuild_s",
                   images=len(encoded)):
             mode, hl_wl = self._batch_layout(encoded)
-            inds = [self._rebuild(e)[0] for e in encoded]
-            buf = self._compact_decode_input(encoded, inds)
+            (buf,) = self._receiver_input(encoded, device_unpack=False)
         with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
-            out = self._decode(self._upload(buf.view(np.int16)), mode,
-                               *hl_wl, out_uint8)
+            out = self._decode(self._upload(buf), mode, *hl_wl, out_uint8)
         if stats is not None:
             stats["b_h2d_bytes"] = stats.get("b_h2d_bytes", 0.0) + buf.nbytes
         return out
@@ -943,11 +892,10 @@ class CGICCodec:
         mode, hl_wl = self._batch_layout(encoded)
         with span("cgic.coding.rebuild", stats, "b_rebuild_s",
                   images=len(encoded)):
-            flat, offs = self._flat_stream_upload(encoded)
+            flat, offs = self._receiver_input(encoded, device_unpack=True)
         with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
-            out = self._decode_unpack(self._upload(flat.view(np.int32)),
-                                      self._upload(offs), mode, *hl_wl,
-                                      out_uint8)
+            out = self._decode_unpack(self._upload(flat), self._upload(offs),
+                                      mode, *hl_wl, out_uint8)
         if stats is not None:
             stats["b_h2d_bytes"] = (stats.get("b_h2d_bytes", 0.0)
                                     + flat.nbytes + offs.nbytes)
@@ -961,19 +909,20 @@ class CGICCodec:
                             threads: Optional[bool] = None
                             ) -> Tuple[List[np.ndarray],
                                        List[List[EncodedImage]]]:
-        """The full codec over a sequence of same-shape image batches,
-        software-pipelined: while the host runs batch i's entropy stage
-        (framing, then the receiver's rebuild), the device already encodes
-        batch i+1, and batch i-1's decode drains. The results equal
-        encode_batch / decode_batch per batch; only the schedule differs.
+        """The full codec over a sequence of same-shape image batches, as
+        three stages a batch (pipeline.run_stages): a uploads and dispatches
+        the encode, b frames the streams (the host entropy stage) and
+        dispatches the receiver, c fetches the reconstruction. The results
+        equal encode_batch / decode_batch per batch; only the schedule
+        differs.
 
-        threads=None: threaded when the codec's device is CUDA. The threaded
-        schedule runs the upload and encode dispatch (this thread), the
-        entropy stage with the decode dispatch (worker B) and the fetch of
-        the reconstructions (worker C) at once, with bounded queues between
-        them. The C++ coder releases the interpreter lock, so the entropy
-        stage overlaps the dispatch. device_unpack=True decodes through the
-        device receiver (decode_batch_device_async) where the table allows.
+        threads=None: threaded when the codec's device is CUDA. Threaded,
+        stage a runs on this thread and b and c on a worker each, with
+        queues of two batches between them, so that the host entropy stage
+        of batch i runs beside the device's encode of batch i+1 (the C++
+        coder releases the interpreter lock); otherwise a, b and c run in
+        turn, batch by batch. device_unpack=True decodes through the device
+        receiver (decode_batch_device_async) where the table allows.
 
         A call is a request's root span, cgic.codec.roundtrip. After the
         call, self.last_pipeline_stats holds each stage's summed seconds and
@@ -984,140 +933,47 @@ class CGICCodec:
 
         Returns (reconstructions per batch, bundles per batch)."""
         batches = list(batches)
+        n = len(batches)
         if threads is None:
             threads = self.device.type == "cuda"
-        if threads and len(batches) > 1:
-            return self._roundtrip_threaded(batches, coarse_ratio,
-                                            medium_ratio,
-                                            device_pack=device_pack,
-                                            out_uint8=out_uint8,
-                                            device_unpack=device_unpack)
         engaged = self._unpack_engaged(device_unpack)
         dec_async = (self.decode_batch_device_async if engaged
                      else self.decode_batch_async)
-        stats = defaultdict(float)
+        recs: List[Optional[np.ndarray]] = [None] * n
+        encs_all: List[Optional[List[EncodedImage]]] = [None] * n
+        stats = defaultdict(float)   # each stage writes its own keys
         stats["device_unpack"] = float(engaged)
-        recs: List[np.ndarray] = []
-        encs_all: List[List[EncodedImage]] = []
+        root = span("cgic.codec.roundtrip", stats, "wall_s", batches=n,
+                    images=sum(len(b) for b in batches))
 
-        def fetch_rec(fetch, i):
-            with span("cgic.pipe.c", batch=i):
-                fetch.sync(stats, "c_sync_s")
-                recs.append(fetch.arrays(stats, "c_fetch_s")[0])
-
-        def dispatch(i):
-            with span("cgic.pipe.a", stats, "a_upload_s", batch=i,
-                      bytes=batches[i].nbytes):
+        def stage_a(i):
+            with span("cgic.pipe.a", stats, "a_upload_s", parent=root,
+                      batch=i, bytes=batches[i].nbytes):
                 pend = self.encode_batch_async(batches[i], coarse_ratio,
                                                medium_ratio,
                                                device_pack=device_pack)
             stats["a_upload_bytes"] += batches[i].nbytes
             return pend
 
-        with span("cgic.codec.roundtrip", stats, "wall_s",
-                  batches=len(batches),
-                  images=sum(len(b) for b in batches)):
-            pend_d = None
-            pend_e = dispatch(0) if batches else None
-            for i in range(len(batches)):
-                nxt = dispatch(i + 1) if i + 1 < len(batches) else None
-                with span("cgic.pipe.b", batch=i):
-                    encs = self.encode_finish(pend_e, stats=stats)
-                encs_all.append(encs)
-                if pend_d is not None:
-                    fetch_rec(pend_d, i - 1)
-                with span("cgic.pipe.b", batch=i):
-                    pend_d = _Fetch(dec_async(encs, out_uint8=out_uint8,
+        def stage_b(i, pend):
+            with torch.no_grad(), span("cgic.pipe.b", parent=root, batch=i):
+                encs = self.encode_finish(pend, stats=stats)
+                return encs, _Fetch(dec_async(encs, out_uint8=out_uint8,
                                               stats=stats))
-                pend_e = nxt
-            if pend_d is not None:
-                fetch_rec(pend_d, len(batches) - 1)
-        stats["threaded"] = 0.0
-        self.last_pipeline_stats = dict(stats)
-        return recs, encs_all
 
-    def _roundtrip_threaded(self, batches, coarse_ratio: float,
-                            medium_ratio: float, *, device_pack: bool,
-                            out_uint8: bool, device_unpack: bool = False):
-        """The three-thread schedule of roundtrip_pipelined. The queues hold
-        at most two batches a stage, which bounds device memory. A worker's
-        first error stops the dispatch; the workers drain their queues so
-        that no producer blocks on a dead consumer, and the error is raised
-        here. The workers' spans belong to the call's root span, each to
-        the batch of the queue item it works on."""
-        n = len(batches)
-        recs: List[Optional[np.ndarray]] = [None] * n
-        encs_all: List[Optional[List[EncodedImage]]] = [None] * n
-        qa: "queue.Queue" = queue.Queue(maxsize=2)
-        qb: "queue.Queue" = queue.Queue(maxsize=2)
-        errors: List[BaseException] = []
-        engaged = self._unpack_engaged(device_unpack)
-        dec_async = (self.decode_batch_device_async if engaged
-                     else self.decode_batch_async)
-        stats = defaultdict(float)   # each stage writes its own keys
-        stats["device_unpack"] = float(engaged)
-        root = span("cgic.codec.roundtrip", stats, "wall_s", batches=n,
-                    images=sum(len(b) for b in batches))
+        def stage_c(i, b):
+            encs, rec = b
+            with span("cgic.pipe.c", parent=root, batch=i):
+                encs_all[i] = encs
+                rec.sync(stats, "c_sync_s")
+                recs[i] = rec.arrays(stats, "c_fetch_s")[0]
 
-        def worker_b():
-            while True:
-                item = _get(qa, "qa", root)
-                if item is None:
-                    _put(qb, "qb", None, root)
-                    return
-                if errors:
-                    continue
-                i, pend = item
-                try:
-                    with torch.no_grad(), span("cgic.pipe.b", parent=root,
-                                               batch=i):
-                        encs = self.encode_finish(pend, stats=stats)
-                        rec = _Fetch(dec_async(encs, out_uint8=out_uint8,
-                                               stats=stats))
-                    _put(qb, "qb", (i, encs, rec), root, i)
-                except BaseException as e:   # raised on the caller's thread
-                    errors.append(e)
-
-        def worker_c():
-            while True:
-                item = _get(qb, "qb", root)
-                if item is None:
-                    return
-                if errors:
-                    continue
-                i, encs, rec = item
-                try:
-                    with span("cgic.pipe.c", parent=root, batch=i):
-                        encs_all[i] = encs
-                        rec.sync(stats, "c_sync_s")
-                        recs[i] = rec.arrays(stats, "c_fetch_s")[0]
-                except BaseException as e:
-                    errors.append(e)
-
-        with root:
-            tb = threading.Thread(target=worker_b, daemon=True)
-            tc = threading.Thread(target=worker_c, daemon=True)
-            tb.start()
-            tc.start()
-            try:
-                for i in range(n):
-                    if errors:
-                        break
-                    with span("cgic.pipe.a", stats, "a_upload_s", batch=i,
-                              bytes=batches[i].nbytes):
-                        pend = self.encode_batch_async(
-                            batches[i], coarse_ratio, medium_ratio,
-                            device_pack=device_pack)
-                    stats["a_upload_bytes"] += batches[i].nbytes
-                    _put(qa, "qa", (i, pend), root, i)
-            finally:
-                _put(qa, "qa", None, root)
-                tb.join()
-                tc.join()
-        stats["threaded"] = 1.0
-        self.last_pipeline_stats = dict(stats)
-        if errors:
-            raise errors[0]
+        try:
+            with root:
+                run_stages(n, stage_a, stage_b, stage_c, root=root,
+                           threads=threads, depth=2, stats=stats)
+        finally:
+            self.last_pipeline_stats = dict(stats)
         return recs, encs_all
 
     # ------------------------------------------------------------ round-trip

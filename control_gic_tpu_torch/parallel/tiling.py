@@ -15,8 +15,9 @@ group after tile group), `compress_tiled_many` (many images, software-
 pipelined across groups and images) and `compress_tiled_device` (the tiled
 CLI's default: one upload and one download per image, tiles sliced and
 stitched on the device, streams packed there, images overlapped across the
-host entropy stage by threads; device_unpack=True decodes the streams on
-the device as well).
+host entropy stage by the codec's own three-stage runner,
+`pipeline.run_stages`, and framed and received through the codec's own
+halves; device_unpack=True decodes the streams on the device as well).
 
 The tile mesh (`mesh=` of compress_tiled and compress_tiled_many): a tile
 group's batch is split over the mesh's devices when it divides by their
@@ -31,17 +32,15 @@ round otherwise than the whole group and flip a near-tie index.
 from __future__ import annotations
 
 import copy
-import queue
-import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..codec import CGICCodec, EncodedImage, _Fetch, _get, _put, unpack_impl
-from ..coding.stream_pack import fused_to_bytes
+from ..codec import CGICCodec, EncodedImage, unpack_impl
 from ..ops.router import mode_from_ratios
+from ..pipeline import _Fetch, run_stages
 from ..utils.trace import span
 from .mesh import replica, same_device
 
@@ -285,10 +284,13 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
     source image up (uint8 when given uint8) and the stitched
     reconstruction down (uint8 with out_uint8), plus the few-KB packed
     streams. Tiles are sliced and stitched on the device; the host runs
-    only the entropy stage. With threads, three stages overlap across
-    images: A uploads and dispatches every tile group's encode and pack
-    (this thread), B fetches the packed words, frames and rebuilds, and
-    dispatches each group's decode and stitch, C fetches the canvas.
+    only the entropy stage, in three stages an image
+    (pipeline.run_stages): a uploads and dispatches every tile group's
+    encode and pack, b fetches the packed words, frames and rebuilds, and
+    dispatches each group's decode and stitch, c fetches the canvas. With
+    threads, a runs on this thread and b and c on a worker each, with
+    queues of one image between them, so the stages overlap across
+    images.
 
     Streams and bpp equal compress_tiled(overlap=0)'s; the reconstruction
     differs only by the uint8 quantization (clip, * 255, truncate, as
@@ -315,7 +317,6 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
     stats = defaultdict(float)   # each stage writes its own keys
     stats["device_unpack"] = float(device_unpack)
     root = span("cgic.tiling.compress", stats, "wall_s")
-    errors: List[BaseException] = []
 
     def stage_a(i):
         """The image up once; every tile group's encode + pack dispatched,
@@ -337,53 +338,38 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
         """Fetch the packed words, frame and rebuild on the host, dispatch
         each group's decode + stitch into the canvas."""
         with span("cgic.pipe.b", parent=root, batch=i):
-            return _stage_b(i, bufs)
-
-    def _stage_b(i, bufs):
-        (pt, pb, pl, pr), h0, w0, groups, n_tiles = plans[i]
-        h, w = h0 + pt + pb, w0 + pl + pr
-        canvas = torch.zeros((h, w, 3), device=codec.device,
-                             dtype=torch.uint8 if out_uint8
-                             else torch.float32)
-        bundles: List[Optional[EncodedImage]] = [None] * n_tiles
-        for (th, tw), tyx, offs, fetch in bufs:
-            # "encode still computing" apart from the copy
-            fetch.sync(stats, "b_sync_s")
-            buf = fetch.arrays(stats, "b_fetch_s")[0]
-            stats["b_fetch_bytes"] += buf.nbytes
-            with span("cgic.coding.rebuild", stats, "b_rebuild_s",
-                      images=len(offs)):
-                with span("cgic.coding.frame", bytes=buf.nbytes,
+            (pt, pb, pl, pr), h0, w0, _, n_tiles = plans[i]
+            canvas = torch.zeros((h0 + pt + pb, w0 + pl + pr, 3),
+                                 device=codec.device,
+                                 dtype=torch.uint8 if out_uint8
+                                 else torch.float32)
+            bundles: List[Optional[EncodedImage]] = [None] * n_tiles
+            for (th, tw), tyx, offs, fetch in bufs:
+                # "encode still computing" apart from the copy
+                fetch.sync(stats, "b_sync_s")
+                buf = fetch.arrays(stats, "b_fetch_s")[0]
+                stats["b_fetch_bytes"] += buf.nbytes
+                with span("cgic.coding.rebuild", stats, "b_rebuild_s",
                           images=len(offs)):
-                    layout = codec._pack_layout(mode, th // 4, tw // 4)
-                    encs = [EncodedImage(mode=mode,
-                                         latent_hw=(th // 4, tw // 4),
-                                         image_hw=(th, tw),
-                                         streams=fused_to_bytes(buf, layout,
-                                                                j))
-                            for j in range(len(offs))]
-                for (t, _, _), e in zip(tyx, encs):
-                    bundles[t] = e
-                if device_unpack:
-                    flat, offtbl = codec._flat_stream_upload(encs)
-                else:
-                    inds = [codec._rebuild(e)[0] for e in encs]
-                    dec_in = codec._compact_decode_input(encs, inds)
-            with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
-                if device_unpack:
-                    canvas = _decode_stitch_unpack(
-                        codec, canvas, codec._upload(flat.view(np.int32)),
-                        codec._upload(offtbl), mode, offs, th, tw, out_uint8)
-                    stats["b_h2d_bytes"] += flat.nbytes + offtbl.nbytes
-                else:
-                    canvas = _decode_stitch(
-                        codec, canvas, codec._upload(dec_in.view(np.int16)),
-                        mode, offs, th, tw, out_uint8)
-                    stats["b_h2d_bytes"] += dec_in.nbytes
-        return bundles, _Fetch(canvas)
+                    with span("cgic.coding.frame", bytes=buf.nbytes,
+                              images=len(offs)):
+                        encs = codec._frame_packed(buf, mode, (th, tw),
+                                                   len(offs))
+                    for (t, _, _), e in zip(tyx, encs):
+                        bundles[t] = e
+                    up = codec._receiver_input(encs, device_unpack)
+                with span("cgic.codec.dispatch", stats, "b_h2d_dispatch_s"):
+                    decode = (_decode_stitch_unpack if device_unpack
+                              else _decode_stitch)
+                    canvas = decode(codec, canvas,
+                                    *[codec._upload(a) for a in up], mode,
+                                    offs, th, tw, out_uint8)
+                    stats["b_h2d_bytes"] += sum(a.nbytes for a in up)
+            return bundles, _Fetch(canvas)
 
-    def stage_c(i, bundles, canvas):
+    def stage_c(i, b):
         """Fetch the stitched reconstruction, unpad, count the bits."""
+        bundles, canvas = b
         with span("cgic.pipe.c", parent=root, batch=i):
             (pt, pb, pl, pr), h0, w0, _, _ = plans[i]
             # "decode still computing" apart from the copy
@@ -395,80 +381,34 @@ def compress_tiled_device(codec: CGICCodec, images, coarse_ratio: float,
             bits = sum(e.num_bytes * 8 for e in bundles)
             out[i] = (rec, bits / (h0 * w0), bundles)
 
-    def worker_b():
-        while True:
-            item = _get(qa, "qa", root)
-            if item is None:
-                _put(qb, "qb", None, root)
-                return
-            if errors:
-                continue
-            i, bufs = item
-            try:
-                _put(qb, "qb", (i, *stage_b(i, bufs)), root, i)
-            except BaseException as e:   # raised on the caller's thread
-                errors.append(e)
+    try:
+        with root:
+            images = list(images)
+            n = len(images)
+            root.attrs["images"] = n
+            mode = mode_from_ratios(coarse_ratio, medium_ratio)
+            rc, rm = float(coarse_ratio), float(medium_ratio)
+            out: List[Optional[Tuple]] = [None] * n
 
-    def worker_c():
-        while True:
-            item = _get(qb, "qb", root)
-            if item is None:
-                return
-            if errors:
-                continue
-            try:
-                stage_c(*item)
-            except BaseException as e:
-                errors.append(e)
+            # the plan: each image's padding and its tile offsets by shape,
+            # with the tile's index so that the bundles come back in grid
+            # order
+            plans = []
+            for image in images:
+                h0, w0, _ = image.shape
+                (pl, pr, pt, pb), _ = compute_padding(h0, w0)
+                tiles = tile_grid(h0 + pt + pb, w0 + pl + pr, tile)
+                groups: Dict[Tuple[int, int],
+                             List[Tuple[int, int, int]]] = defaultdict(list)
+                for t, (y, x, th, tw) in enumerate(tiles):
+                    groups[(th, tw)].append((t, y, x))
+                plans.append(((pt, pb, pl, pr), h0, w0, dict(groups),
+                              len(tiles)))
 
-    with root:
-        images = list(images)
-        n = len(images)
-        root.attrs["images"] = n
-        mode = mode_from_ratios(coarse_ratio, medium_ratio)
-        rc, rm = float(coarse_ratio), float(medium_ratio)
-        out: List[Optional[Tuple]] = [None] * n
-
-        # the plan: each image's padding and its tile offsets by shape, with
-        # the tile's index so that the bundles come back in grid order
-        plans = []
-        for image in images:
-            h0, w0, _ = image.shape
-            (pl, pr, pt, pb), _ = compute_padding(h0, w0)
-            tiles = tile_grid(h0 + pt + pb, w0 + pl + pr, tile)
-            groups: Dict[Tuple[int, int],
-                         List[Tuple[int, int, int]]] = defaultdict(list)
-            for t, (y, x, th, tw) in enumerate(tiles):
-                groups[(th, tw)].append((t, y, x))
-            plans.append(((pt, pb, pl, pr), h0, w0, dict(groups),
-                          len(tiles)))
-
-        threaded = threads and n > 1
-        if not threaded:
-            for i in range(n):
-                stage_c(i, *stage_b(i, stage_a(i)))
-        else:
-            qa: "queue.Queue" = queue.Queue(maxsize=1)
-            qb: "queue.Queue" = queue.Queue(maxsize=1)
-            tb = threading.Thread(target=worker_b, daemon=True)
-            tc = threading.Thread(target=worker_c, daemon=True)
-            tb.start()
-            tc.start()
-            try:
-                for i in range(n):
-                    if errors:
-                        break
-                    bufs = stage_a(i)
-                    _put(qa, "qa", (i, bufs), root, i)
-            finally:
-                # unblock the workers even when stage A raised
-                _put(qa, "qa", None, root)
-                tb.join()
-                tc.join()
-    stats["threaded"] = float(threaded)
-    codec.last_pipeline_stats = dict(stats)
-    if errors:
-        raise errors[0]
+            run_stages(n, stage_a, stage_b, stage_c, root=root,
+                       threads=threads, depth=1, stats=stats)
+    finally:
+        codec.last_pipeline_stats = dict(stats)
     return out
 
 

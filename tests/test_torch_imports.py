@@ -12,6 +12,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "control_gic_tpu")
 
 MODULES = """
 import control_gic_tpu_torch, control_gic_tpu_torch.codec
+import control_gic_tpu_torch.pipeline
 import control_gic_tpu_torch.cli.infer, control_gic_tpu_torch.utils.from_jax
 import control_gic_tpu_torch.ops.norm_conv, control_gic_tpu_torch.ops.fused_norm
 import control_gic_tpu_torch.kernels.build

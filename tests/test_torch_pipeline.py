@@ -2,9 +2,12 @@
 CPU at a tiny config with the same weights and counts: device-packed streams
 (equal to the host coder's and to JAX's), the compact receiver's
 reconstructions, roundtrip_pipelined with threads on and off, the async
-batch API's error handling and stats, the uint16 codebook bound, and the
-inference CLI's --device_pack, --batch, -w, --use-ema and --lpips."""
+batch API's error handling and stats, the three-stage runner's errors on
+pure-Python stages, the uint16 codebook bound, and the inference CLI's
+--device_pack, --batch, -w, --use-ema and --lpips."""
 import os
+import sys
+import threading
 
 import numpy as np
 import jax
@@ -19,6 +22,8 @@ from control_gic_tpu.models import CGIC as JCGIC
 from control_gic_tpu.models import CGICConfig as JConfig
 from control_gic_tpu_torch.codec import CGICCodec
 from control_gic_tpu_torch.models import CGIC, CGICConfig
+from control_gic_tpu_torch.pipeline import run_stages
+from control_gic_tpu_torch.utils import trace
 from control_gic_tpu_torch.utils.from_jax import state_dict_from_flax
 
 torch.set_num_threads(2)
@@ -147,6 +152,67 @@ def test_worker_error_fails_the_call(codecs, batches, monkeypatch, stage):
     with pytest.raises(RuntimeError, match="injected failure"):
         codec.roundtrip_pipelined(batches, 0.1, 0.4, threads=True)
     assert codec.last_pipeline_stats["threaded"] == 1.0
+
+
+def _run_failing(threads, failing, n, depth):
+    """run_stages over n items on stages that log their calls, `failing`
+    raising from item 1 on, called on a thread of its own with a time
+    limit: (the errors raised, the log, the stats)."""
+    log = []   # ("a", i) as stage a starts, ("raise", i) as a stage raises
+    stats, raised = {}, []
+
+    def stage(name):
+        def run(i, x=None):
+            if name == "a":
+                log.append(("a", i))
+            if name == failing and i >= 1:
+                log.append(("raise", i))
+                raise RuntimeError(f"stage {name} item {i}")
+            return i
+        return run
+
+    def call():
+        root = trace.span("cgic.test.root")
+        try:
+            with root:
+                run_stages(n, stage("a"), stage("b"), stage("c"), root=root,
+                           threads=threads, depth=depth, stats=stats)
+        except RuntimeError as e:
+            raised.append(e)
+
+    t = threading.Thread(target=call)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    return raised, log, stats
+
+
+@pytest.mark.parametrize("failing", ["a", "b", "c"])
+@pytest.mark.parametrize("threads", [False, True])
+def test_run_stages_raises_the_first_error(threads, failing):
+    """The runner on pure-Python stages, the failing one raising from item
+    1 on, 20 times with a short switch interval: the call raises item 1's
+    error; threaded, once the failure is raised at most the queues' items
+    (and one in each worker's hands) enter stage a, and both workers have
+    exited."""
+    n, depth = 20, 2
+    before = threading.active_count()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(20):
+            raised, log, stats = _run_failing(threads, failing, n, depth)
+            assert [str(e) for e in raised] == [f"stage {failing} item 1"]
+            assert threading.active_count() == before
+            assert stats["threaded"] == float(threads)
+            at = log.index(("raise", 1))
+            after = [e for e in log[at:] if e[0] == "a"]
+            if threads:
+                assert len(after) <= 2 * depth + 2
+            else:
+                assert after == [] and log[:at] == [("a", 0), ("a", 1)]
+    finally:
+        sys.setswitchinterval(old)
 
 
 def test_encode_async_then_finish(codecs, batches):

@@ -163,7 +163,7 @@ def test_roundtrip_serial_spans(codec, batches):
         batches, 0.1, 0.4, threads=False))
     (root,) = by_name(spans, "cgic.codec.roundtrip")
     assert {s.thread for s in spans} == {threading.get_native_id()}
-    for stage in "ac":
+    for stage in "abc":
         assert sorted(s.batch for s in by_name(spans, f"cgic.pipe.{stage}")
                       ) == [0, 1, 2]
     _check_sums(spans, codec.last_pipeline_stats)
