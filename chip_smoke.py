@@ -137,6 +137,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -228,8 +229,9 @@ SPATIAL_ATTN_SHAPES = [(1, 196608, 196608, 512, "bfloat16"),
 # PLAIN_CHUNK rows (the rows of softmax attention are independent)
 CHECK_ROWS = 1024
 PLAIN_CHUNK = 4096
-# the chain kernel's calls on the 512x768 path: (norm form, H, W, Cin, Cout,
-# residual, emits moments, dtype); the f32 row is the parity path
+# the chain kernel's calls on the 512x768 path, then on the tiled path's
+# tiles: (norm form, H, W, Cin, Cout, residual, emits moments, dtype); the
+# f32 row is the parity path
 CHAIN_SHAPES = [("gn", 512, 768, 128, 128, True, True, "bfloat16"),
                 ("gn", 256, 384, 128, 256, False, True, "bfloat16"),
                 ("gn", 256, 384, 256, 256, True, True, "bfloat16"),
@@ -241,7 +243,11 @@ CHAIN_SHAPES = [("gn", 512, 768, 128, 128, True, True, "bfloat16"),
                 # the tiled path's 768-px tile (encoder level 0, decoder
                 # level 0)
                 ("gn", 768, 768, 128, 128, True, True, "bfloat16"),
-                ("sn", 768, 768, 128, 128, True, True, "bfloat16")]
+                ("sn", 768, 768, 128, 128, True, True, "bfloat16"),
+                # a 768x496 edge tile: decoder level 0, and level 1 (W 248,
+                # not a multiple of the 64-column tile)
+                ("sn", 768, 496, 128, 128, True, True, "bfloat16"),
+                ("sn", 384, 248, 256, 256, True, True, "bfloat16")]
 # the training kernels' shapes (B, Tq, Tk, C, dtype): the 256x256 batch-2
 # training step's four attentions (C=512 in the decoder's mids, 256 in the
 # encoder's fine head), in the recipe's f32 and in bf16; then ragged
@@ -432,26 +438,31 @@ def phase_build() -> None:
     log("build", seconds=round(time.perf_counter() - t0, 3), libraries=paths)
     if "flash_attn_bwd" in build.BUILD_LOG:
         report = build.BUILD_LOG["flash_attn_bwd"][1]
-        entries = ptxas_entries(report)
+        entries, serialized = ptxas_entries(report), ptxas_serialized(report)
         for dt in ("f32", "bf16"):
             found = {name: entry for name, entry in entries.items()
                      if f"_{dt}_" in name}
             log(f"ptxas {dt} backward", kernels=found,
-                serialized=[line.strip() for line in report.splitlines()
-                            if "serializ" in line and f"_{dt}_" in line])
+                serialized={name: lines for name, lines in serialized.items()
+                            if f"_{dt}_" in name})
             if len(found) != 8 or any(st or ld for _, st, ld in
                                       found.values()):
                 raise AssertionError(f"{dt} backward instantiations: "
                                      f"expected 8 without spills, got "
                                      f"{found}")
     if "norm_conv_chain" in build.BUILD_LOG:
-        chain = {name: entry for name, entry in ptxas_entries(
-            build.BUILD_LOG["norm_conv_chain"][1]).items()
-            if name.startswith("chain_kernel_wgmma")}
-        log("ptxas bf16 chain", kernels=chain)
-        if len(chain) != 3 or any(st or ld for _, st, ld in chain.values()):
+        report = build.BUILD_LOG["norm_conv_chain"][1]
+        chain = {name: entry for name, entry in ptxas_entries(report).items()
+                 if name.startswith("chain_kernel_wgmma")}
+        # only the bf16 instantiations issue wgmma, so any such line of this
+        # library is theirs
+        serialized = ptxas_serialized(report)
+        log("ptxas bf16 chain", kernels=chain, serialized=serialized)
+        if (len(chain) != 3 or any(st or ld for _, st, ld in chain.values())
+                or serialized):
             raise AssertionError(f"bf16 chain instantiations: expected 3 "
-                                 f"without spills, got {chain}")
+                                 f"without spills or serialised wgmma, got "
+                                 f"{chain}, serialised {serialized}")
     if "spatial_norm_apply" in build.BUILD_LOG:
         apply = {name: entry for name, entry in ptxas_entries(
             build.BUILD_LOG["spatial_norm_apply"][1]).items()
@@ -462,19 +473,40 @@ def phase_build() -> None:
                                  f"spills, got {apply}")
 
 
+def _kernel_name(text: str):
+    """The short name of the flash backward's or the bf16 chain's template
+    named in text (flash_bwd_dq_f32_kernel<8>, chain_kernel_wgmma<128>), or
+    None."""
+    short = re.search(r"(flash_bwd_\w+?_kernel|chain_kernel_wgmma)ILi(\d+)E",
+                      text)
+    return f"{short.group(1)}<{short.group(2)}>" if short else None
+
+
+def ptxas_serialized(report: str) -> dict:
+    """kernel -> the lines of a ptxas -v report that say its wgmma were
+    serialised: under the kernel a line names, else under the entry function
+    whose compilation it follows (short names as ptxas_entries gives them)."""
+    out, current = {}, "unattributed"
+    for line in report.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("Compiling entry function '", 1)[1]
+            name = name.split("'", 1)[0]
+            current = _kernel_name(name) or name
+        if "serializ" in line:
+            out.setdefault(_kernel_name(line) or current, []).append(
+                line.strip())
+    return out
+
+
 def ptxas_entries(report: str) -> dict:
     """kernel -> (registers, spill store bytes, spill load bytes) from a
     ptxas -v report; the flash backward's and the bf16 chain's templates by
     their short names (flash_bwd_dq_f32_kernel<8>, chain_kernel_wgmma<128>),
     others mangled."""
-    import re
     out = {}
     for block in report.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
-        short = re.search(r"(flash_bwd_\w+?_kernel|chain_kernel_wgmma)"
-                          r"ILi(\d+)E", name)
-        if short:
-            name = f"{short.group(1)}<{short.group(2)}>"
+        name = _kernel_name(name) or name
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)

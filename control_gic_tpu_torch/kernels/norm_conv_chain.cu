@@ -22,22 +22,22 @@
 // bf16 path (chain_kernel_wgmma<BN>): an implicit GEMM, M = output pixels,
 // N = Cout, K = 9*Cin, on wgmma. A CTA owns TH rows x TW = 64 columns of output
 // pixels and BN output channels, and runs 256 threads: two warpgroups, whose
-// thread 0 also issues every copy.
+// thread 0 also issues the weight copies.
 //  - Loads: for each chunk of KC = 32 input channels the raw halo box of x,
 //    KC x (TH+2) rows x 80 columns from the 16-byte aligned x0 - 8 (the 66
 //    halo columns inside), by 16-byte cp.async vectors of every thread into
 //    a 2-stage ring, two chunks ahead of its transform (plain loads where W
 //    is not a multiple of 8); and the weights of each (tap, chunk) pair, KC x
 //    BN, by a 1-D TMA bulk copy (cp.async.bulk) from the wrapper's packing
-//    into an mbarrier ring of 6 stages (9 for BN = 8), which thread 0 refills
-//    once both warpgroups are past a stage. A tiled TMA box for x was tried
-//    first: on the H100 a box at a negative coordinate (the halo left of or
-//    above the image) raised an illegal instruction, and boxes clamped into
-//    the image still did inside this kernel, so x takes cp.async.
+//    into an mbarrier ring of 9 stages (7 for BN = 256). A tiled TMA box for x
+//    was tried first: on the H100 a box at a negative coordinate (the halo
+//    left of or above the image) raised an illegal instruction, and boxes
+//    clamped into the image still did inside this kernel, so x takes
+//    cp.async.
 //    Why no producer warp: for a kernel with wgmma, ptxas allots registers
 //    per warpgroup, so 288 threads (a producer warp beside two warpgroups)
 //    compiled below the registers it needs and spilled; 256 threads leave
-//    255, and the wide instantiations use ~250 without a spill.
+//    255, and the wide instantiations use ~254 without a spill.
 //  - Transform: both warpgroups read the raw tile, apply normalize, modulate and
 //    swish ONCE per element in f32, write 0 at every position outside the image
 //    (the halo rule; the loads' zero fill is not enough, act(0) != 0), round
@@ -55,14 +55,37 @@
 //    flight, beside the 128 accumulator registers a thread; SS leaves those
 //    registers free for the transform, below.
 //  - Overlap: the transform of chunk c+1 runs in the warpgroups that
-//    multiply, while the tensor cores run chunk c: each of the 9 taps issues
-//    its wgmmas asynchronously, then transforms a ninth of chunk c+1 into the
-//    other activated buffer, then waits for the previous tap's group
-//    (wait_group 1) and releases that tap's weight stage. Neither dedicated
-//    transform warps nor a ping-pong between the warpgroups: a third
-//    warpgroup would cut the register cap of all threads below the 128
+//    multiply, while the tensor cores run chunk c. Each of the 9 taps waits
+//    for its weights, issues its wgmmas and commits them; taps 0 .. TAPS-1
+//    then transform SLICE items of chunk c+1 (IPT a thread, the fewest that
+//    cover the chunk in 9 taps: 1 at BN = 128 and 256, 2 at BN = 8) into the
+//    other activated buffer; the tap waits for the previous tap's group
+//    (wait_group 1), releases that tap's weight stage (one arrival a warp),
+//    and, once every warp is past tap k - 3, thread 0 refills that stage with
+//    tap k - 3 + WS: two taps of slack between the warpgroups, WS - 3 of lead
+//    for the copy. Measured on the H100: a refill waited for by warp 0 alone
+//    ran 5-8% slower; one tap of slack, or two items a thread a tap, no
+//    faster; 9 stages in place of 7 at BN = 128 1-2% faster. Neither
+//    dedicated transform warps nor a ping-pong between the warpgroups: a
+//    third warpgroup would cut the register cap of all threads below the 128
 //    accumulators plus the transform's registers, and a ping-pong would
 //    halve the M each warpgroup owns.
+//  - What keeps the products asynchronous: ptxas serialises every wgmma of a
+//    kernel (each product waited for before the next instruction) when code
+//    between a product and its wait_group may run on a divergent path. The
+//    first version of this loop had such paths (spin-waits with a trap
+//    branch, thread 0's blocking refill, lane-0 arrivals, the transform's
+//    thread-strided loop and halo branch), and ptxas serialised all three
+//    instantiations (C7518, "program dependence on compiler-inserted WG.DP in
+//    divergent path"); it ran 1.2-1.3x slower than this one. So every
+//    instruction of the main loop runs warp-converged: the ring's waits are
+//    warp-uniform (every lane tries the barrier, vote.all, a branch marked
+//    uniform, the trap a predicated instruction); the arrivals, the bulk
+//    copies and the masked stores are predicated instructions, not branches;
+//    the transform takes a compile-time count of items a thread, computes the
+//    masked tail at a clamped index and applies the halo rule as a select.
+//    The products keep the (chunk, tap, k16) order, so outputs and moments are
+//    those of the serialised kernel, bit for bit.
 //  - Tiles: a warpgroup owns MB m64 blocks, one image row of 64 pixels each,
 //    with MB * BN / 2 f32 accumulators a thread: BN = 128 (Cout 9..128): MB = 2,
 //    TH = 4, 256 pixels; BN = 256 (Cout 129..256): MB = 1, TH = 2, 128 pixels,
@@ -70,13 +93,13 @@
 //    along N (grid.y), each 128 x 256, and each activates x again; BN = 8 (Cout
 //    <= 8, conv_out): MB = 4, TH = 8, 512 pixels, the same kernel at n8, where
 //    the transform, not the products, takes most of the time. Two variants
-//    ran slower on the H100: a branch-free transform of 4 items a thread at
-//    a time, and 256-pixel tiles with 16-channel chunks at 128 registers,
-//    two CTAs an SM.
+//    ran slower on the H100 (both with the products serialised): 4 transform
+//    items a thread at a time, and 256-pixel tiles with 16-channel chunks at
+//    128 registers, two CTAs an SM.
 //  - Shared memory (Cin = 512, SpatialNorm form): parameters 13*Cin*4 = 26.6
 //    KB, the zq halo 16 B a pixel, raw ring 2 x 20-51 KB, activated tiles 2 x
-//    17-42 KB, weight ring 6 x 8-16 KB (9 x 0.5 KB at BN = 8): 194-229 KB of
-//    the 227 KB, one CTA an SM.
+//    17-42 KB, weight ring 9 x 8 KB (BN = 128), 7 x 16 KB (BN = 256), 9 x 0.5
+//    KB (BN = 8): 219-229 KB of the 232 KB, one CTA an SM.
 //  - Epilogue: the accumulators are staged through shared memory as
 //    [channel][pixel] (aliasing the rings), then bias, residual, rounding and
 //    the store run along W in 16-byte vectors (scalar where W is not a
@@ -408,6 +431,7 @@ constexpr int HWD = TW + 2;                 // halo columns
 constexpr int RW = 80;                      // raw stage row: 10 aligned 16-byte vectors
 constexpr int kThreads = 256;               // two warpgroups
 constexpr int RS = 2;                       // raw x stages
+constexpr int LAG = 3;                      // tap k refills the weight stage of tap k - LAG
 
 template <int BN>
 struct Cfg {
@@ -416,14 +440,19 @@ struct Cfg {
   static constexpr int M = TH * TW;
   static constexpr int HP = (TH + 2) * HWD;           // halo pixels
   static constexpr int NA = BN / 2;                   // accumulators a thread, per m64 block
-  static constexpr int WS = BN == 8 ? 9 : 6;          // weight stages
+  static constexpr int WS = BN == 256 ? 7 : 9;        // weight stages
   static constexpr uint32_t RAW = KC * (TH + 2) * RW * 2;    // [KC][TH+2][RW] bf16
   static constexpr uint32_t ACT = KC * HP * 2;               // [KC/8][HP][8] bf16
   static constexpr uint32_t WST = KC * BN * 2;               // [KC/8][BN][8] bf16
   static constexpr int LDC = M + 4;                          // epilogue row stride (floats)
   static constexpr uint32_t RING = RS * RAW + 2 * ACT + WS * WST;
   static constexpr int ITEMS = HP * (KC / 8);                // transform items a chunk
-  static constexpr int SLICE = (ITEMS + 8) / 9;              // items a tap
+  // items a thread in a tap that transforms: the fewest that cover a chunk
+  // in 9 taps; taps 0 .. TAPS-1 transform SLICE items each, the last masked
+  static constexpr int IPT = (ITEMS + 9 * kThreads - 1) / (9 * kThreads);
+  static constexpr int SLICE = IPT * kThreads;
+  static constexpr int TAPS = (ITEMS + SLICE - 1) / SLICE;
+  static_assert(WS > LAG, "the ring holds the taps in flight");
   static_assert(BN * LDC * 4 <= (int)RING, "the epilogue tile fits the rings");
   static_assert(RAW % 128 == 0 && ACT % 128 == 0 && WST % 128 == 0, "aligned stages");
 };
@@ -453,35 +482,49 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > kSpinLimit) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
+// The warp waits for the phase of the given parity to complete. Every lane
+// tries the barrier, and the warp leaves only once all of them have seen the
+// phase (vote.all), on a branch marked uniform: no path of the loop is
+// divergent, so ptxas can keep wgmma products in flight across it. A wait
+// that never completes traps (a launch error) instead of hanging the card; the
+// trap is a predicated instruction, not a branch.
+__device__ __forceinline__ void mbar_wait_warp(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
+      "{\n.reg .pred p, q;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "vote.sync.all.pred p, p, 0xffffffff;\n"
+      "@p bra.uni DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.gt.u32 q, n, %2;\n"
+      "@q trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity), "n"(kSpinLimit)
+      : "memory");
+}
+
+// One arrival on the barrier from the threads where `on` holds, by a
+// predicated instruction.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)on)
+      : "memory");
+}
+
+// `bytes` from src into shared memory at dst by a 1-D TMA bulk copy that
+// completes on the barrier bar, issued by the threads where `issue` holds (the
+// expected bytes announced first), by predicated instructions.
+__device__ __forceinline__ void bulk_load_if(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar, bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%3], [%4], %2, "
+      "[%1];\n}\n" ::"r"((int)issue),
+      "r"(bar), "r"(bytes), "r"(dst), "l"(src)
       : "memory");
 }
 
@@ -509,10 +552,13 @@ __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
+// a 16-byte store to shared memory where `on` holds, predicated
+__device__ __forceinline__ void st_shared_v4_if(uint32_t addr, uint4 v, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"((int)on)
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -691,11 +737,12 @@ chain_kernel_wgmma(const Args args) {
       }
     }
   };
-  // the weights of k = 9 * chunk + tap into stage k % WS (leader only)
+  // the weights of k = 9 * chunk + tap into stage k % WS: called by every
+  // thread of a converged warp, issued by the leader's predicate
   auto load_w = [&](int k) {
     const int s = k % K::WS, c = k / 9, t = k - 9 * (k / 9);
-    mbar_expect_tx(w_full + 8 * s, K::WST);
-    bulk_load(w0 + s * K::WST, wsrc + ((size_t)t * nch + c) * KC * BN, K::WST, w_full + 8 * s);
+    bulk_load_if(w0 + s * K::WST, wsrc + ((size_t)t * nch + c) * KC * BN, K::WST,
+                 w_full + 8 * s, leader);
   };
 
   if (leader) {
@@ -706,9 +753,8 @@ chain_kernel_wgmma(const Args args) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (leader) {   // the loads run while the parameters are staged
-    for (int k = 0; k < K::WS && k < n_w; ++k) load_w(k);
-  }
+  // the loads run while the parameters are staged
+  for (int k = 0; k < K::WS && k < n_w; ++k) load_w(k);
   for (int c = 0; c < RS && c < nch; ++c) load_raw(c);
   cp_async_wait_all();
   for (int c = tid; c < Cin; c += kThreads) {
@@ -741,61 +787,63 @@ chain_kernel_wgmma(const Args args) {
   }
   __syncthreads();
 
-  // items [i0, i1) of chunk c's activated tile: item i is channel group
-  // j = i / HP (8 channels) of halo pixel p = i % HP
-  auto transform = [&](int c, uint32_t dst, int i0, int i1) {
+  // item i of chunk c's activated tile: channel group j = i / HP (8
+  // channels) of halo pixel p = i % HP. Branch-free: the halo rule is a
+  // select, and an item at or past ITEMS (the masked tail of a slice) is
+  // computed at a clamped index and not stored.
+  auto act_item = [&](int c, uint32_t dst, int i) {
+    const bool valid = i < K::ITEMS;
+    i = min(i, K::ITEMS - 1);
     const bf16* sraw = reinterpret_cast<const bf16*>(gbase + (raw0 - base) + (c % RS) * K::RAW);
-    for (int i = i0 + tid; i < i1; i += kThreads) {
-      const int j = i / HP, p = i - j * HP;
-      const int r = p / HWD, col = p - r * HWD;
-      const int y = y0 - 1 + r, xx = x0 - 1 + col;
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (y >= 0 && y < H && xx >= 0 && xx < W) {
-        const int ch = c * KC + 8 * j;
-        const bf16* src = sraw + (8 * j * (TH + 2) + r + oy) * RW + col + 7;
-        float a[8], m[8], sc[8], be[8];
+    const int j = i / HP, p = i - j * HP;
+    const int r = p / HWD, col = p - r * HWD;
+    const int y = y0 - 1 + r, xx = x0 - 1 + col;
+    const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
+    const int ch = c * KC + 8 * j;
+    // raw row r + oy; the halo row above the image (-1) reads row 0 instead,
+    // and is zeroed below
+    const bf16* src = sraw + (8 * j * (TH + 2) + max(r + oy, 0)) * RW + col + 7;
+    float a[8], m[8], sc[8], be[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) a[e] = __bfloat162float(src[e * (TH + 2) * RW]);
-        load8(sMean + ch, m);
-        load8(sScale + ch, sc);
-        load8(sBeta + ch, be);
+    for (int e = 0; e < 8; ++e) a[e] = __bfloat162float(src[e * (TH + 2) * RW]);
+    load8(sMean + ch, m);
+    load8(sScale + ch, sc);
+    load8(sBeta + ch, be);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) a[e] = (a[e] - m[e]) * sc[e] + be[e];
-        if (modulate) {
-          const float4 zv = sZ[p];
-          const float zz[Z] = {zv.x, zv.y, zv.z, zv.w};
-          float ym[8], bm[8], wz[8];
-          load8(sWy + ch, wz);
+    for (int e = 0; e < 8; ++e) a[e] = (a[e] - m[e]) * sc[e] + be[e];
+    if (modulate) {
+      const float4 zv = sZ[p];
+      const float zz[Z] = {zv.x, zv.y, zv.z, zv.w};
+      float ym[8], bm[8], wz[8];
+      load8(sWy + ch, wz);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) ym[e] = zz[0] * wz[e];
-          load8(sWb + ch, wz);
+      for (int e = 0; e < 8; ++e) ym[e] = zz[0] * wz[e];
+      load8(sWb + ch, wz);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) bm[e] = zz[0] * wz[e];
+      for (int e = 0; e < 8; ++e) bm[e] = zz[0] * wz[e];
 #pragma unroll
-          for (int z = 1; z < Z; ++z) {
-            load8(sWy + z * Cin + ch, wz);
+      for (int z = 1; z < Z; ++z) {
+        load8(sWy + z * Cin + ch, wz);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) ym[e] = fmaf(zz[z], wz[e], ym[e]);
-            load8(sWb + z * Cin + ch, wz);
+        for (int e = 0; e < 8; ++e) ym[e] = fmaf(zz[z], wz[e], ym[e]);
+        load8(sWb + z * Cin + ch, wz);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) bm[e] = fmaf(zz[z], wz[e], bm[e]);
-          }
-          load8(sBy + ch, wz);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) ym[e] += wz[e];
-          load8(sBb + ch, wz);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) a[e] = a[e] * ym[e] + (bm[e] + wz[e]);
-        }
-        if (swish) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) a[e] = __fdividef(a[e], 1.0f + __expf(-a[e]));
-        }
-        packed = make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
-                            pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]));
+        for (int e = 0; e < 8; ++e) bm[e] = fmaf(zz[z], wz[e], bm[e]);
       }
-      st_shared_v4(dst + (uint32_t)(j * HP + p) * 16u, packed);
+      load8(sBy + ch, wz);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ym[e] += wz[e];
+      load8(sBb + ch, wz);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) a[e] = a[e] * ym[e] + (bm[e] + wz[e]);
     }
+    if (swish) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) a[e] = __fdividef(a[e], 1.0f + __expf(-a[e]));
+    }
+    const uint4 packed = make_uint4(in ? pack_bf16(a[0], a[1]) : 0u, in ? pack_bf16(a[2], a[3]) : 0u,
+                                    in ? pack_bf16(a[4], a[5]) : 0u, in ? pack_bf16(a[6], a[7]) : 0u);
+    st_shared_v4_if(dst + (uint32_t)(j * HP + p) * 16u, packed, valid);
   };
 
   float acc[MB][K::NA];
@@ -805,7 +853,8 @@ chain_kernel_wgmma(const Args args) {
     for (int i = 0; i < K::NA; ++i) acc[mb][i] = 0.0f;
 
   // chunk 0's activated tile, before any product
-  transform(0, act0, 0, K::ITEMS);
+#pragma unroll 1
+  for (int i0 = 0; i0 < K::ITEMS; i0 += kThreads) act_item(0, act0, i0 + tid);
   fence_proxy_async();
   __syncthreads();
   if (RS < nch) load_raw(RS);   // into chunk 0's stage, free now
@@ -818,8 +867,7 @@ chain_kernel_wgmma(const Args args) {
     for (int t = 0; t < 9; ++t) {
       const int k = 9 * c + t, s = k % K::WS;
       const int dy = t / 3, dx = t - 3 * dy;
-      mbar_wait(w_full + 8 * s, (k / K::WS) & 1);
-      __syncwarp();   // wgmma is .aligned: the warp converged
+      mbar_wait_warp(w_full + 8 * s, (k / K::WS) & 1);
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
@@ -835,24 +883,27 @@ chain_kernel_wgmma(const Args args) {
         }
       }
       wgmma_commit();
-      if (more) {   // a ninth of the next chunk's activated tile
-        const int i0 = t * K::SLICE, i1 = min(K::ITEMS, i0 + K::SLICE);
-        transform(c + 1, nxt, i0, i1);
+      // while the products run: the next chunk's items [t SLICE, (t+1)
+      // SLICE), IPT a thread (the branch is uniform)
+      if (more && t < K::TAPS) {
+#pragma unroll
+        for (int u = 0; u < K::IPT; ++u) act_item(c + 1, nxt, t * K::SLICE + u * kThreads + tid);
       }
       wgmma_wait<1>();
       fence_acc(acc);
-      if (t > 0 && lane == 0) mbar_arrive(w_empty + 8 * ((k - 1) % K::WS));
-      // refill the stage of k - 2 once both warpgroups are past it (a tap of
-      // slack for the other warpgroup)
-      if (leader && k >= 2 && k - 2 + K::WS < n_w) {
-        mbar_wait(w_empty + 8 * ((k - 2) % K::WS), ((k - 2) / K::WS) & 1);
-        load_w(k - 2 + K::WS);
+      // this warp is past tap k - 1: its weight stage is released
+      mbar_arrive_if(w_empty + 8 * ((k + K::WS - 1) % K::WS), t > 0 && lane == 0);
+      // the stage of tap k - LAG takes tap k - LAG + WS once every warp is
+      // past k - LAG: LAG - 1 taps of slack between the warpgroups, and the
+      // copy lands WS - LAG taps ahead of its products
+      if (k >= LAG && k - LAG + K::WS < n_w) {
+        mbar_wait_warp(w_empty + 8 * ((k - LAG) % K::WS), ((k - LAG) / K::WS) & 1);
+        load_w(k - LAG + K::WS);
       }
-      __syncwarp();
     }
     wgmma_wait<0>();
     fence_acc(acc);
-    if (lane == 0) mbar_arrive(w_empty + 8 * ((9 * c + 8) % K::WS));
+    mbar_arrive_if(w_empty + 8 * ((9 * c + 8) % K::WS), lane == 0);
     cp_async_wait_all();   // the raw x of chunk c + 2
     fence_proxy_async();
     __syncthreads();

@@ -348,7 +348,13 @@ CHAIN_CONFIGS = list(itertools.product([True, False], [False, True],
     (1, 256, 256, 1, 129),
     (2, 128, 3, 9, 65),
     (1, 256, 4, 7, 63),
-    (1, 512, 512, 5, 65)])
+    (1, 512, 512, 5, 65),
+    # the tiled codec's ragged widths (tiles cut short of 64 columns; x not
+    # loaded in 16-byte vectors where W is not a multiple of 8): a 768x496
+    # tile's latent (W 124) and level 1 (W 248), a 576x496 tile's H/16 (W 31)
+    (1, 512, 512, 192, 124),
+    (1, 256, 256, 384, 248),
+    (1, 512, 512, 36, 31)])
 def test_chain_kernel_matches_plain(cuda, dtype, b, cin, cout, h, w):
     a = _chain_inputs(cuda, b, cin, cout, h, w, dtype, cin + cout + h + w)
     mom_in = FN.gn_moments_reference(a["x"])
@@ -426,7 +432,8 @@ def test_moment_gradient_matches_plain(cuda):
 
 @pytest.mark.parametrize("cin, cout, h, w", [(128, 128, 64, 64),
                                            (256, 256, 34, 96),
-                                           (128, 3, 40, 130)])
+                                           (128, 3, 40, 130),
+                                           (256, 256, 384, 248)])
 def test_chain_kernel_is_bit_stable(cuda, cin, cout, h, w):
     a = _chain_inputs(cuda, 1, cin, cout, h, w, torch.bfloat16, 7)
     out1, mom1 = _chain(a, True, True, None, True)

@@ -5,8 +5,8 @@
 No device counter is readable on the card's machine, so this times the
 kernel (`kernels/norm_conv_chain.cu`, `chain_kernel_wgmma`) at the codec's
 shapes with one part of it taken out at a time: the activation transform
-(the tile stays zero), the wgmma products, the cp.async loads of x, the
-output stores. Each variant is built from a copy of the package in a
+(the tile keeps what shared memory held), the wgmma products, the cp.async
+loads of x, the output stores. Each variant is built from a copy of the package in a
 temporary directory (the checkout is not touched) and timed in its own
 process with CUDA events, 20 launches after 3 warm-ups. The outputs of the
 variants are wrong by design; only the times mean something. Prints one
@@ -25,10 +25,9 @@ SOURCE = os.path.join("control_gic_tpu_torch", "kernels", "norm_conv_chain.cu")
 # variant -> (text of the kernel, its replacement)
 VARIANTS = {
     "full": [],
-    "no_transform": [(
-        "      if (y >= 0 && y < H && xx >= 0 && xx < W) {\n"
-        "        const int ch = c * KC + 8 * j;",
-        "      if (false) {\n        const int ch = c * KC + 8 * j;")],
+    "no_transform": [("    const bool valid = i < K::ITEMS;\n",
+                      "    if (i >= 0) return;\n"
+                      "    const bool valid = i < K::ITEMS;\n")],
     "no_products": [("          wgmma_ss(acc[mb], da, db);\n",
                      "          (void)da;\n          (void)db;\n")],
     "no_x_loads": [("    const uint32_t dst = raw0 + (c % RS) * K::RAW;\n",
