@@ -3,7 +3,7 @@
 
     python3 benchmark/checks/readings.py --workload <cell> \
         --seeds 11 12 ... [--seconds 5] [--control-seeds 11 12 13] \
-        [--fault half_batch]
+        [--fault half_batch | next_point]
 
 For each of --seeds, one run of the cell in this process (set-up, a short
 window at the cell's own load, the comparison), printing the numbers the
@@ -13,9 +13,11 @@ size, judged the same way: the reference computed a precision below the
 configuration's (fp8 for the bf16 codec: each operand of every product
 rounded to float8 e4m3 with one scale per tensor; TF32 for the f32
 training step), and with --fault half_batch (training) the reference
-stepped on half of each batch in the replayed steps 2-4. Those are the upper readings. One JSON
-line per reading: {"kind": "program" | "control" | "<fault>", "seed",
-"numbers"}.
+stepped on half of each batch in the replayed steps 2-4; with --fault
+next_point (a cell with several operating points) a run of the program
+whose every unit is judged at the next point's ratios, the last point's at
+the first's. Those are the upper readings. One JSON line per reading:
+{"kind": "program" | "control" | "<fault>", "seed", "numbers"}.
 """
 import argparse
 import gc
@@ -58,12 +60,12 @@ def codec_control(driver, prec: R.Prec) -> dict:
     cfg = model_dict(c.config)
     params = reference_params(c.config, c.seed, c.device)
     coder = C.Coder(driver.counts)
-    mode = R.mode_of(*driver.ratios)
     tile = driver.t.get("tile")
     grid = harness.load_module("drivers", "codec_tiled").tile_grid
     units = []
     R.fp32_pipes(True)
-    for i in driver.sample(range(len(driver.pool))):
+    for i, ratios in driver.control_items():
+        mode = R.mode_of(*ratios)
         img = driver.pool[i]
         h, w = img.shape[:2]
         for y, x, th, tw in grid(h, w, tile) if tile else [(0, 0, h, w)]:
@@ -71,7 +73,7 @@ def codec_control(driver, prec: R.Prec) -> dict:
             xt = torch.from_numpy(part).to(c.device).permute(2, 0, 1)[None]
             with torch.no_grad():
                 ind, masks, _ = R.encode(xt.float() / 255.0, params, cfg,
-                                         driver.ratios, prec)
+                                         ratios, prec)
                 rec = R.decode(ind, masks, params, cfg, prec)
             masks = [m[0].cpu().numpy() for m in masks]
             streams = C.encode_streams(coder, ind[0].cpu().numpy(), masks,
@@ -81,9 +83,23 @@ def codec_control(driver, prec: R.Prec) -> dict:
                    if driver.t["driver"] == "codec_single"
                    else R.to_uint8(rec)[0].cpu().numpy())
             units.append({"image": part, "streams": streams, "mode": mode,
-                          "bpp": bits / (th * tw), "rec": out})
+                          "bpp": bits / (th * tw), "rec": out,
+                          "ratios": ratios})
     return judge.judge_codec(units, params, cfg, driver.counts,
                              driver.ratios, c.device)
+
+
+def judged_at_next_point(points):
+    """judge.judge_codec with each unit's ratios replaced by the next
+    point's: the control of a cell that serves several points."""
+    points = [tuple(float(r) for r in p) for p in points]
+    after = {p: points[(k + 1) % len(points)] for k, p in enumerate(points)}
+    judge_codec = judge.judge_codec
+
+    def shifted(units, *args, **kw):
+        return judge_codec([dict(u, ratios=after[tuple(u["ratios"])])
+                            for u in units], *args, **kw)
+    return shifted
 
 
 def train_control(driver, kind: str) -> dict:
@@ -110,13 +126,35 @@ def train_control(driver, kind: str) -> dict:
             "per_step": judge.step_numbers(prog, ref)}
 
 
+def next_point_run(workload: str, seed: int, seconds: float,
+                   device: str) -> dict:
+    """A run of the program, every unit judged at the next point's ratios
+    (judged_at_next_point)."""
+    manifest = harness.load_json(harness.ROOT, "BENCHMARK.json")
+    w, _ = harness.find_cell(manifest, workload)
+    points = harness.load_json(harness.BENCH_DIR, "traffic",
+                               f"{w['traffic']}.json")["points"]
+    judge_codec = judge.judge_codec
+    judge.judge_codec = judged_at_next_point(points)
+    try:
+        r = harness.run(workload, seed, seconds, False, device=device,
+                        log=lambda s: None)
+    finally:
+        judge.judge_codec = judge_codec
+    gc.collect()
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    return {"correct": r["correct"],
+            **{k: v["value"] for k, v in r["checks"].items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="*", default=[])
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
-    ap.add_argument("--fault", choices=("half_batch",))
+    ap.add_argument("--fault", choices=("half_batch", "next_point"))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     looks = {}
@@ -143,6 +181,12 @@ def main() -> int:
     kinds = ["control"] + ([args.fault] if args.fault else [])
     for seed in args.control_seeds:
         for kind in kinds:
+            if kind == "next_point":
+                numbers = next_point_run(args.workload, seed, args.seconds,
+                                         args.device)
+                print(json.dumps({"kind": kind, "seed": seed,
+                                  "numbers": numbers}), flush=True)
+                continue
             d = cell_for(args.workload, seed, args.device)
             if d.cell.traffic["driver"] == "train_step":
                 numbers = train_control(d, kind)

@@ -5,7 +5,8 @@ what the window served with the reference.
 The configuration file's `model` holds the CGICConfig as it is run, and
 `table` the skew of the codebook counts the Huffman table is built from.
 The traffic's `image_hw`, `pool` and `ratios` give the images and the
-operating point; `check_images` how many distinct pool images the
+operating point (a driver that serves several points gives each unit it
+keeps its own `ratios`); `check_images` how many distinct pool images the
 comparison takes, drawn from the seed among those the window served (the
 last time it served each).
 """
@@ -61,8 +62,9 @@ class CodecCell:
     def __init__(self, cell):
         self.cell = cell
         self.t = cell.traffic
-        self.ratios = tuple(float(r) for r in self.t["ratios"])
-        self.served: Dict[int, List[dict]] = {}   # pool index -> units
+        self.ratios = (tuple(float(r) for r in self.t["ratios"])
+                       if "ratios" in self.t else None)
+        self.served: Dict[object, List[dict]] = {}   # pool index -> units
         self.n_items = 0
         self.cursor = 0
 
@@ -86,13 +88,18 @@ class CodecCell:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        # the first request captures each program, the second replays it
-        for _ in range(2):
-            self.request(keep=False)
+        self.warm_up()
         self.capture_s = self.codec._programs.capture_s
         parts["capture_s"] = self.capture_s
+        parts["programs"] = self.codec._programs.captured
         parts["warm_up_s"] = time.perf_counter() - t0 - self.capture_s
         self.reset_window()
+
+    def warm_up(self) -> None:
+        """Set-up's requests: the first captures each program, the second
+        replays it."""
+        for _ in range(2):
+            self.request(keep=False)
 
     def make_inputs(self) -> None:
         """The codebook table, the pool and the order the requests take it
@@ -111,6 +118,11 @@ class CodecCell:
             self.cell.seed, weights.SAMPLE)).choice(len(indices), n,
                                                     replace=False)
         return [indices[i] for i in sorted(pick)]
+
+    def control_items(self) -> List[tuple]:
+        """(pool index, ratios) of each image the control in the program's
+        place is judged on (checks/readings.py), drawn as `sample` draws."""
+        return [(i, self.ratios) for i in self.sample(range(len(self.pool)))]
 
     def make_pool(self) -> np.ndarray:
         """[pool, H, W, 3] uint8 images, made on the device from the seed."""

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 # purposes of the numbers drawn from one seed
-WEIGHTS, IMAGES, TABLE, SAMPLE, ORDER = range(5)
+WEIGHTS, IMAGES, TABLE, SAMPLE, ORDER, POINTS = range(6)
 
 SPECIAL_STD = {"decoder.conv_out.weight": 0.25}
 SPECIAL_FILL = {"decoder.conv_out.bias": 0.5}

@@ -1,11 +1,14 @@
 """The comparisons that decide `correct`: what the program produced in the
 measured window against the plain reference.
 
-Codec (`judge_codec`), per image or tile the program served:
+Codec (`judge_codec`), per image or tile the program served, routed at
+the unit's own `ratios` where it has them (a cell that serves several
+operating points), at the cell's otherwise:
   stream_errors  streams the reference coder cannot read back to the
                  program's masks, or that it does not re-encode to the same
                  bytes, or a bpp that is not the streams' bits over the
-                 pixels (a count; exact: limit 0);
+                 pixels, or a mode that is not the ratios' (a count; exact:
+                 limit 0);
   grain_diff     the share of latent positions whose grain (coarse, medium,
                  fine) differs from the reference router's;
   index_diff     the share of positions of equal grain whose VQ index
@@ -75,7 +78,8 @@ def judge_codec(units: List[dict], params, cfg: dict, counts, ratios,
     (the program's figure for this unit, or None where it reported one for
     a whole image) and 'rec' ([H, W, 3] uint8, or float32 in [0, 1]
     units); 'image_bpp_error' marks a whole image's bpp that is not its
-    tiles' bits over its pixels."""
+    tiles' bits over its pixels; 'ratios' (optional) the (coarse, medium)
+    the unit was served at, in place of `ratios`."""
     coder = C.Coder(counts)
     out = dict.fromkeys(CODEC_NUMBERS, 0.0)
     off, off_fp8 = [], []
@@ -89,15 +93,15 @@ def judge_codec(units: List[dict], params, cfg: dict, counts, ratios,
             out["stream_errors"] += 1
             continue
         bits = 8 * sum(len(s) for s in u["streams"].values())
-        if u.get("image_bpp_error"):
+        r = tuple(u.get("ratios", ratios))
+        if u.get("image_bpp_error") or u["mode"] != M.mode_of(*r):
             out["stream_errors"] += 1
         if (C.encode_streams(coder, ind_p, masks_p, u["mode"]) != u["streams"]
                 or (u.get("bpp") is not None and u["bpp"] != bits / (h * w))):
             out["stream_errors"] += 1
         x = torch.from_numpy(u["image"]).to(device).permute(2, 0, 1)[None]
         with torch.no_grad():
-            ind_r, masks_r, _ = M.encode(x.float() / 255.0, params, cfg,
-                                         ratios)
+            ind_r, masks_r, _ = M.encode(x.float() / 255.0, params, cfg, r)
             grains_p = M.grain_map([torch.from_numpy(m)[None].to(device)
                                     for m in masks_p])
             grains_r = M.grain_map(masks_r)

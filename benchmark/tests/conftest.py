@@ -1,7 +1,10 @@
 """The benchmark's own tests (run with `python -m pytest benchmark/tests`).
 They import the port and the benchmark, never JAX. Tests that need a CUDA
 card carry the `card` marker and take the `card` fixture, which skips
-without one."""
+without one. Under several workers give each few threads
+(`OMP_NUM_THREADS=2 python -m pytest -n 4 benchmark/tests`: about a minute
+on 8 cores; torch's default of a thread a core in each worker takes tens
+of minutes there)."""
 import os
 import sys
 
@@ -25,6 +28,11 @@ TINY_TRAFFIC = {
     "div2k-tiled": {"image_hw": [70, 100], "pool": 4, "check_images": 1,
                     "tile": 48, "images_per_call": 2},
     "train-256": {"image_hw": [64, 64], "pool": 8},
+    # a point of each of modes 0-3, and two points of mode 0
+    "kodak-mixrate": {"image_hw": [64, 96], "pool": 6, "batches_per_call": 1,
+                      "warm_up_batches": 1,
+                      "points": [[0.1, 0.4], [0.3, 0.5], [0.0, 0.8],
+                                 [0.3, 0.0], [0.5, 0.5]]},
 }
 
 

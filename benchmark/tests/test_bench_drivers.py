@@ -6,7 +6,8 @@ from conftest import tiny_run
 
 
 @pytest.mark.parametrize("workload", ["kodak-pipe", "kodak-single",
-                                      "div2k-tiled", "train-256"])
+                                      "div2k-tiled", "train-256",
+                                      "kodak-mixrate"])
 def test_tiny_run(workload):
     r = tiny_run(workload)
     assert list(r) == ["correct", "attempted", "failed", "metrics", "device",

@@ -11,7 +11,7 @@ import torch
 
 from conftest import tiny_run
 
-CODEC_CELLS = ["kodak-pipe", "kodak-single", "div2k-tiled"]
+CODEC_CELLS = ["kodak-pipe", "kodak-single", "div2k-tiled", "kodak-mixrate"]
 
 
 @pytest.mark.parametrize("workload", CODEC_CELLS)

@@ -56,8 +56,22 @@ def test_cells(manifest):
         pairs.add((w["config"], w["traffic"]))
     used = {w["config"] for w in manifest["workloads"]}
     assert used == configs
-    assert sum(w["chips"] == 4 for w in manifest["workloads"]) <= max(
-        1, len(manifest["workloads"]) // 4)
+    assert four_chip_cells_allowed(
+        len(manifest["workloads"]),
+        sum(w["chips"] == 4 for w in manifest["workloads"]))
+
+
+def four_chip_cells_allowed(cells: int, four_chip: int) -> bool:
+    """At most 25% of the cells, rounded down, ask for 4 chips; one always
+    may."""
+    return four_chip <= max(1, cells // 4)
+
+
+@pytest.mark.parametrize("cells, four_chip, allowed", [
+    (5, 1, True), (6, 1, True), (6, 2, False), (7, 2, False),
+    (8, 2, True)])
+def test_four_chip_rule(cells, four_chip, allowed):
+    assert four_chip_cells_allowed(cells, four_chip) == allowed
 
 
 def test_metrics(manifest):
